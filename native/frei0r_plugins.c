@@ -75,7 +75,7 @@ typedef struct { unsigned w, h; double level; double invert; } inst_t;
 void f0r_get_plugin_info (f0r_plugin_info_t * info)
 {
   info->name = "fixbrightness";
-  info->author = "gstbad_tpu fixtures";
+  info->author = "gstbad fixtures";
   info->plugin_type = F0R_PLUGIN_TYPE_FILTER;
   info->color_model = F0R_COLOR_MODEL_BGRA8888;
   info->frei0r_version = 1;
@@ -153,7 +153,7 @@ typedef struct { unsigned w, h; f0r_param_color_t tint; } inst_t;
 void f0r_get_plugin_info (f0r_plugin_info_t * info)
 {
   info->name = "fixgradient";
-  info->author = "gstbad_tpu fixtures";
+  info->author = "gstbad fixtures";
   info->plugin_type = F0R_PLUGIN_TYPE_SOURCE;
   info->color_model = F0R_COLOR_MODEL_BGRA8888;
   info->frei0r_version = 1;
@@ -220,7 +220,7 @@ typedef struct { unsigned w, h; double mix; f0r_param_position_t anchor;
 void f0r_get_plugin_info (f0r_plugin_info_t * info)
 {
   info->name = "fixblend";
-  info->author = "gstbad_tpu fixtures";
+  info->author = "gstbad fixtures";
   info->plugin_type = F0R_PLUGIN_TYPE_MIXER2;
   info->color_model = F0R_COLOR_MODEL_BGRA8888;
   info->frei0r_version = 1;
@@ -299,7 +299,7 @@ typedef struct { unsigned w, h; char tag[256]; } inst_t;
 void f0r_get_plugin_info (f0r_plugin_info_t * info)
 {
   info->name = "fixlabeler";
-  info->author = "gstbad_tpu fixtures";
+  info->author = "gstbad fixtures";
   info->plugin_type = F0R_PLUGIN_TYPE_FILTER;
   info->color_model = F0R_COLOR_MODEL_PACKED32;
   info->frei0r_version = 1;

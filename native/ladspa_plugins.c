@@ -1,5 +1,5 @@
-/* A self-contained LADSPA plugin library used by the gstbad_tpu LADSPA
- * host (gstbad_tpu/io/ladspa.py) and its tests.
+/* A self-contained LADSPA plugin library used by the gstbad LADSPA
+ * host (gstbad/io/ladspa.py) and its tests.
  *
  * The environment ships no LADSPA plugins, so this file provides the
  * fixtures the reference's ladspa element family
@@ -258,19 +258,19 @@ static const LADSPA_PortRangeHint peak_meter_phints[] = {
 /* ---- descriptors ----------------------------------------------------- */
 
 static const LADSPA_Descriptor descriptors[] = {
-  {4801, "amp_mono", 0, "TPU Test Mono Amplifier", "gstbad_tpu",
+  {4801, "amp_mono", 0, "GstBad Test Mono Amplifier", "gstbad",
         "ISC", 3, amp_mono_pdesc, amp_mono_pnames, amp_mono_phints,
         NULL, instantiate, connect_port, NULL, amp_mono_run, NULL,
       NULL, NULL, cleanup},
-  {4802, "amp_stereo", 0, "TPU Test Stereo Amplifier", "gstbad_tpu",
+  {4802, "amp_stereo", 0, "GstBad Test Stereo Amplifier", "gstbad",
         "ISC", 7, amp_stereo_pdesc, amp_stereo_pnames,
         amp_stereo_phints, NULL, instantiate, connect_port, NULL,
       amp_stereo_run, NULL, NULL, NULL, cleanup},
-  {4803, "sine_osc", 0, "TPU Test Sine Oscillator", "gstbad_tpu",
+  {4803, "sine_osc", 0, "GstBad Test Sine Oscillator", "gstbad",
         "ISC", 3, sine_osc_pdesc, sine_osc_pnames, sine_osc_phints,
         NULL, instantiate, connect_port, sine_osc_activate,
       sine_osc_run, NULL, NULL, NULL, cleanup},
-  {4804, "peak_meter", 0, "TPU Test Peak Meter", "gstbad_tpu",
+  {4804, "peak_meter", 0, "GstBad Test Peak Meter", "gstbad",
         "ISC", 2, peak_meter_pdesc, peak_meter_pnames,
         peak_meter_phints, NULL, instantiate, connect_port,
       peak_meter_activate, peak_meter_run, NULL, NULL, NULL, cleanup},

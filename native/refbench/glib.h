@@ -7,8 +7,8 @@
  * path.  Used ONLY by tools/ref_baseline.py to produce the compiled-C
  * single-core baseline in BASELINE_C.json; never linked into the framework.
  */
-#ifndef GSTBAD_TPU_REFBENCH_GLIB_SHIM_H
-#define GSTBAD_TPU_REFBENCH_GLIB_SHIM_H
+#ifndef GSTBAD_REFBENCH_GLIB_SHIM_H
+#define GSTBAD_REFBENCH_GLIB_SHIM_H
 
 #include <stdint.h>
 

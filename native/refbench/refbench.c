@@ -556,7 +556,7 @@ int rb_ivtc_comb_score(const uint8_t *top, const uint8_t *bottom, int h,
 }
 
 /* ---- the 10-element headline graph, timed in-process ----
- * Mirrors gstbad_tpu/models/benchmarks.py ten_element_graph:
+ * Mirrors gstbad/models/benchmarks.py ten_element_graph:
  * sepia -> solarize -> chromium -> dodge -> burn -> exclusion -> dilate
  * -> chromahold -> convert-to-Y -> zebrastripe, element defaults.  burn is
  * the REAL reference ORC backup kernel. */

@@ -1,6 +1,6 @@
 """Hand-crafted H.264 NAL synthesis for DPB-layer unit vectors.
 
-The decoder base layer (gstbad_tpu/codecs/h264.py) only parses slice
+The decoder base layer (gstbad/codecs/h264.py) only parses slice
 HEADERS — slice payloads can be empty.  That lets tests build tiny
 conformant header streams exercising POC types 0/1/2, MMCO operations
 and frame_num gaps that real encoders rarely emit

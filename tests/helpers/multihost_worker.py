@@ -39,13 +39,13 @@ assert jax.local_device_count() == 4
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-import gstbad_tpu as gt  # noqa: E402
-from gstbad_tpu.core.frame import FrameBatch  # noqa: E402
-from gstbad_tpu.core.spec import MediaSpec  # noqa: E402
-from gstbad_tpu.io.ipcpipeline import (IpcMaster, IpcSlave,  # noqa: E402
+import gstbad as gt  # noqa: E402
+from gstbad.core.frame import FrameBatch  # noqa: E402
+from gstbad.core.spec import MediaSpec  # noqa: E402
+from gstbad.io.ipcpipeline import (IpcMaster, IpcSlave,  # noqa: E402
                                        STATE_CHANGE_SUCCESS)
-from gstbad_tpu.parallel import make_mesh  # noqa: E402
-from gstbad_tpu.parallel.multihost import feed_window  # noqa: E402
+from gstbad.parallel import make_mesh  # noqa: E402
+from gstbad.parallel.multihost import feed_window  # noqa: E402
 
 H, W, B_LOCAL = 16, 128, 4
 window_info = {}

@@ -3,7 +3,7 @@ dash/hls/mss manifest models, with an injected in-memory fetcher."""
 
 import pytest
 
-from gstbad_tpu.session import adaptive as ad
+from gstbad.session import adaptive as ad
 
 
 class FakeNet:
@@ -283,7 +283,7 @@ def test_mss_fragments_and_switch():
 # ------------------------------------------------------------- elements
 
 def test_demux_elements_registered():
-    import gstbad_tpu as gt
+    import gstbad as gt
     net = FakeNet(_hls_files(), rate_bps=10_000_000)
     el = gt.make("hlsdemux", **{"connection-speed": 150})
     el.load(MASTER, net.fetch, uri="http://x/master.m3u8",

@@ -5,7 +5,7 @@ element buffer semantics (serialize-iv, per-buffer-padding, stream tail).
 import numpy as np
 import pytest
 
-from gstbad_tpu.io import aes
+from gstbad.io import aes
 
 K128 = "2b7e151628aed2a6abf7158809cf4f3c"
 K256 = ("603deb1015ca71be2b73aef0857d7781"

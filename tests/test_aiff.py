@@ -5,10 +5,10 @@ import struct
 
 import numpy as np
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.pipeline import parse_launch
-from gstbad_tpu.core.spec import MediaSpec
-from gstbad_tpu.io import aiff
+import gstbad as gt
+from gstbad.core.pipeline import parse_launch
+from gstbad.core.spec import MediaSpec
+from gstbad.io import aiff
 
 
 def test_ieee80_roundtrip():

@@ -6,10 +6,10 @@ import struct
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.io import asf
-from gstbad_tpu.io import tsoracle
-from gstbad_tpu.io.typefind import find_type
+import gstbad as gt
+from gstbad.io import asf
+from gstbad.io import tsoracle
+from gstbad.io.typefind import find_type
 
 
 @pytest.fixture

@@ -4,10 +4,10 @@ faithful, VAD exact)."""
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.harness import Harness
-from gstbad_tpu.core.spec import AudioFormat, MediaSpec
-from gstbad_tpu.golden import audio as golden
+import gstbad as gt
+from gstbad.core.harness import Harness
+from gstbad.core.spec import AudioFormat, MediaSpec
+from gstbad.golden import audio as golden
 
 
 def _spec(fmt, ch, rate=48000):
@@ -116,7 +116,7 @@ def test_freeverb_mono_s16(rng):
 
 
 def test_vad_block_matches_golden(rng):
-    from gstbad_tpu.ops import audio as ops
+    from gstbad.ops import audio as ops
     import jax.numpy as jnp
     data = rng.integers(-30000, 30000, (1000,)).astype(np.int16)
     gold = golden.VAD(hysteresis=480, threshold_db=-60)
@@ -423,7 +423,7 @@ def test_webrtcdsp_aec_converges_on_real_echo_path(rng):
     + decaying taps), not just suppresses: ERLE on the second half of a
     1 s white-noise run must exceed 15 dB with the NLP bypassed
     (ops/audio.aec_cancel overdrive=0)."""
-    from gstbad_tpu.ops import audio as ops
+    from gstbad.ops import audio as ops
     import jax.numpy as jnp
     frame = 160
     N = frame * 100
@@ -457,7 +457,7 @@ def test_webrtcdsp_aec_double_talk_keeps_near_speech(rng):
     far-end activity survives within 3 dB while the echo stays
     cancelled (the double-talk property the reference trades off via
     echo-suppression-level)."""
-    from gstbad_tpu.ops import audio as ops
+    from gstbad.ops import audio as ops
     import jax.numpy as jnp
     rate, frame = 16000, 160
     N = frame * 100
@@ -593,7 +593,7 @@ def test_audiolatency_tick_roundtrip():
 def test_audiobuffersplit_discont_resync():
     """GstAudioStreamAlign semantics: drift past alignment-threshold
     sustained for discont-wait resyncs output PTS and flags DISCONT."""
-    from gstbad_tpu.core.frame import FLAG_DISCONT
+    from gstbad.core.frame import FLAG_DISCONT
     h = Harness("audiobuffersplit",
                 **{"output-buffer-duration": "1/100",
                    "alignment-threshold": 40_000_000,
@@ -741,7 +741,7 @@ def test_freeverb_past_ring_wrap(rng):
 def test_audiobuffersplit_resync_after_discont_wait():
     """Regression: a sustained PTS jump must trigger resync once
     discont-wait elapses (the expected timeline must not self-heal)."""
-    from gstbad_tpu.core.frame import FLAG_DISCONT
+    from gstbad.core.frame import FLAG_DISCONT
     h = Harness("audiobuffersplit",
                 **{"output-buffer-duration": "1/100",
                    "discont-wait": 25_000_000})  # 25 ms
@@ -780,7 +780,7 @@ def test_audiobuffersplit_gapless_silence_fill():
     """gapless=true: a forward PTS gap within max-silence-time is filled
     with silence and the output timeline stays continuous, no DISCONT
     (gstaudiobuffersplit.c:543-610)."""
-    from gstbad_tpu.core.frame import FLAG_DISCONT
+    from gstbad.core.frame import FLAG_DISCONT
     h = Harness("audiobuffersplit",
                 **{"output-buffer-duration": "1/100",
                    "gapless": True,
@@ -806,7 +806,7 @@ def test_audiobuffersplit_gapless_silence_fill():
 def test_audiobuffersplit_gapless_too_big_gap_resyncs():
     """gapless=true but gap > max-silence-time: falls through to the
     discont path like the reference (gstaudiobuffersplit.c:574-580)."""
-    from gstbad_tpu.core.frame import FLAG_DISCONT
+    from gstbad.core.frame import FLAG_DISCONT
     h = Harness("audiobuffersplit",
                 **{"output-buffer-duration": "1/100",
                    "gapless": True,
@@ -828,7 +828,7 @@ def test_audiobuffersplit_gapless_drop_overlap():
     """gapless=true: a backward PTS jump (overlap) drops the overlapping
     samples from the front of the input instead of resyncing
     (gstaudiobuffersplit.c:610-618, clip_buffer_start_for_gapless)."""
-    from gstbad_tpu.core.frame import FLAG_DISCONT
+    from gstbad.core.frame import FLAG_DISCONT
     h = Harness("audiobuffersplit",
                 **{"output-buffer-duration": "1/100", "gapless": True,
                    "alignment-threshold": 5_000_000})
@@ -935,7 +935,7 @@ def test_webrtcdsp_ns_quantile_tracks_floor_change(rng):
     """The staggered log-quantile estimator follows a noise-floor step:
     after the floor drops 20 dB the estimate falls with it (windows
     promote every END_STARTUP/SIMULT frames)."""
-    from gstbad_tpu.ops import audio as ops
+    from gstbad.ops import audio as ops
 
     rate, frame = 16000, 160
     bins = frame // 2 + 1
@@ -959,7 +959,7 @@ def test_webrtcdsp_ns_quantile_tracks_floor_change(rng):
 def test_webrtcdsp_ns_speech_probability_bounds(rng):
     """Speech probability stays in [0, 1] and goes high for a loud tone
     appearing over a converged noise floor."""
-    from gstbad_tpu.ops import audio as ops
+    from gstbad.ops import audio as ops
 
     rate, frame = 16000, 160
     bins = frame // 2 + 1
@@ -986,7 +986,7 @@ def test_chromaprint_library_acoustid_compatible():
     reference wraps): the element's tag is byte-identical to a direct
     chromaprint_feed/get_fingerprint of the same S16 stream — i.e.
     Acoustid-compatible."""
-    from gstbad_tpu.io import chromaprint as cp
+    from gstbad.io import chromaprint as cp
     if not cp.available():
         pytest.skip("libchromaprint not present")
     rate = 44100
@@ -1053,7 +1053,7 @@ def test_audioconvert_mix_matrix_override(rng):
 
 def test_vad_window_matches_folded_vad_block(rng):
     import jax.numpy as jnp
-    from gstbad_tpu.ops import audio as ops
+    from gstbad.ops import audio as ops
     nb, n = 5, 480
     thr = jnp.int64(int((10.0 ** -6) * 4294967295))
     hys = jnp.int64(480)
@@ -1066,7 +1066,7 @@ def test_vad_window_matches_folded_vad_block(rng):
         for k in range(nb):
             st, ft = ops.vad_block(st, data[k], thr, hys)
             fts.append(int(ft))
-        st2, ft2 = ops.vad_window(st2, data, thr, hys, interpret=True)
+        st2, ft2 = ops.vad_window(st2, data, thr, hys)
         assert fts == [int(x) for x in ft2]
         for key in st:
             np.testing.assert_array_equal(np.asarray(st[key]),
@@ -1078,10 +1078,10 @@ def test_vad_bracket_and_serial_fallback_exact():
     _vad_powers_bracket): per-block recurrences bracketed by the extreme
     initial powers run in parallel; a non-coalescing bracket (constant
     DC power — the contraction's floor boundary can persist) falls back
-    to the serial Pallas kernel.  Both paths must equal the per-sample
+    to the serial recurrence.  Both paths must equal the per-sample
     reference recurrence (vad_private.c:117) bit-for-bit."""
     import jax.numpy as jnp
-    from gstbad_tpu.ops import audio as A
+    from gstbad.ops import audio as A
 
     def oracle(p0, sq):
         a, b = A.VAD_POWER_ALPHA, A._VAD_B
@@ -1105,5 +1105,27 @@ def test_vad_bracket_and_serial_fallback_exact():
         if name == "dc-fallback":
             assert not bool((np.asarray(lo) == np.asarray(hi)).all())
         new, _ = A.vad_window(st, jnp.asarray(data), jnp.int64(10 ** 9),
-                              jnp.int64(480), interpret=True)
+                              jnp.int64(480))
         assert int(new["power"]) == oracle(123456789, sq), name
+
+
+def test_vad_powers_serial_matches_oracle():
+    """The serial limb recurrence (ops/audio._vad_powers_serial) gives
+    every block's end power of the per-sample reference
+    (vad_private.c:117), carried across blocks."""
+    import jax.numpy as jnp
+    from gstbad.ops import audio as A
+
+    rng2 = np.random.default_rng(4)
+    data = rng2.integers(-32768, 32768, (3, 300)).astype(np.int64)
+    sq = ((data ** 2) >> 14) & 0xFFFF
+    p = 0xABCDE
+    want = []
+    for row in sq:
+        for s in row:
+            p = A.VAD_POWER_ALPHA * int(s) + ((A._VAD_B * p) >> 16)
+        want.append(p)
+    p0 = jnp.asarray([0xABCDE >> 16, 0xABCDE & 0xFFFF], jnp.int32)
+    hl = np.asarray(A._vad_powers_serial(p0, jnp.asarray(sq, jnp.int32)))
+    np.testing.assert_array_equal((hl[:, 0].astype(np.int64) << 16)
+                                  | hl[:, 1], want)

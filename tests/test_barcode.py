@@ -8,12 +8,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.frame import FrameBatch
-from gstbad_tpu.core.pipeline import Pipeline
-from gstbad_tpu.core.spec import MediaSpec
-from gstbad_tpu.io import qr as qrenc
-from gstbad_tpu.io import qrdecode as qd
+import gstbad as gt
+from gstbad.core.frame import FrameBatch
+from gstbad.core.pipeline import Pipeline
+from gstbad.core.spec import MediaSpec
+from gstbad.io import qr as qrenc
+from gstbad.io import qrdecode as qd
 
 
 def _render_qr(m, ps=6, ox=20, oy=20, W=260, H=260):

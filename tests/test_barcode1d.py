@@ -8,11 +8,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.frame import FrameBatch
-from gstbad_tpu.core.pipeline import Pipeline
-from gstbad_tpu.core.spec import MediaSpec
-from gstbad_tpu.io import barcode1d as b1
+import gstbad as gt
+from gstbad.core.frame import FrameBatch
+from gstbad.core.pipeline import Pipeline
+from gstbad.core.spec import MediaSpec
+from gstbad.io import barcode1d as b1
 
 
 def _drive(name, frames_gray, **props):
@@ -99,7 +99,7 @@ def test_upce_roundtrip_and_expansion():
 
 
 def test_upce_number_system_1():
-    from gstbad_tpu.io.qrdecode import ean13_checksum_ok
+    from gstbad.io.qrdecode import ean13_checksum_ok
     # find a valid NS-1 code
     for check in range(10):
         code = f"1654321{check}"

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.harness import Harness
-from gstbad_tpu.core.spec import MediaSpec, VideoFormat
-from gstbad_tpu.golden import bayer as golden
+import gstbad as gt
+from gstbad.core.harness import Harness
+from gstbad.core.spec import MediaSpec, VideoFormat
+from gstbad.golden import bayer as golden
 
 H, W = 16, 24
 

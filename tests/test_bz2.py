@@ -4,7 +4,7 @@ reference via CPython's bz2 module."""
 import bz2
 import numpy as np
 
-from gstbad_tpu.io import bz2stream
+from gstbad.io import bz2stream
 
 
 def test_stream_roundtrip_and_chunking():

@@ -8,12 +8,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.frame import FrameBatch
-from gstbad_tpu.core.pipeline import Pipeline
-from gstbad_tpu.core.spec import MediaSpec
-from gstbad_tpu.io import cea608
-from gstbad_tpu.io.ccconv import (CCConverterEngine, compact_cc_data,
+import gstbad as gt
+from gstbad.core.frame import FrameBatch
+from gstbad.core.pipeline import Pipeline
+from gstbad.core.spec import MediaSpec
+from gstbad.io import cea608
+from gstbad.io.ccconv import (CCConverterEngine, compact_cc_data,
                                   cc_data_extract_cea608)
 
 

@@ -6,12 +6,12 @@ import fractions
 import numpy as np
 import jax.numpy as jnp
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.frame import FrameBatch
-from gstbad_tpu.core.pipeline import Pipeline
-from gstbad_tpu.core.spec import MediaSpec
-from gstbad_tpu.golden import line21 as G
-from gstbad_tpu.ops import line21 as O
+import gstbad as gt
+from gstbad.core.frame import FrameBatch
+from gstbad.core.pipeline import Pipeline
+from gstbad.core.spec import MediaSpec
+from gstbad.golden import line21 as G
+from gstbad.ops import line21 as O
 
 
 def _pairs(rng, n):
@@ -110,7 +110,7 @@ def test_combiner_and_extractor():
     f2 = _pairs(rng, b)
     cc = _s334(f1, f2)
 
-    from gstbad_tpu.core.pipeline import Node
+    from gstbad.core.pipeline import Node
 
     vsrc = gt.make("appsrc", format="I420", width=w, height=h)
     csrc = gt.make("appsrc", format="I420", width=6, height=1)
@@ -151,7 +151,7 @@ def test_decoder_no_false_positive_on_plain_video():
 
 def test_cea608_io_conversions():
     """io/cea608.py vs hand-built vectors (gstccconverter.c paths)."""
-    from gstbad_tpu.io import cea608 as C
+    from gstbad.io import cea608 as C
 
     raw = bytes([0x94, 0x2C, 0x80, 0x80])
     s334 = C.raw_to_s334(raw)
@@ -173,7 +173,7 @@ def test_cea608_io_conversions():
 
 
 def test_ccconverter_element_cdp_roundtrip():
-    from gstbad_tpu.io import cea608 as C
+    from gstbad.io import cea608 as C
 
     rng = np.random.default_rng(5)
     b, h, w = 3, 48, 64
@@ -235,7 +235,7 @@ def _cc_data_from_dtvcc(pkt):
 
 
 def test_cea708_decode_text_window():
-    from gstbad_tpu.io import cea708 as C
+    from gstbad.io import cea708 as C
 
     # DF0: visible window at anchor 0, 2 rows x 16 cols, then text
     df0 = bytes([C.CMD_DF0, 0x20, 10, 40, (0 << 4) | 1, 15, 0])
@@ -261,7 +261,7 @@ def test_cea708_decode_text_window():
 
 
 def test_cea708_commands_clear_hide_delete():
-    from gstbad_tpu.io import cea708 as C
+    from gstbad.io import cea708 as C
 
     dec = C.Cea708Decoder()
     df0 = bytes([C.CMD_DF0, 0x20, 10, 40, 0x01, 15, 0])
@@ -287,7 +287,7 @@ def test_cea708_commands_clear_hide_delete():
 
 
 def test_ceaccoverlay_element():
-    from gstbad_tpu.io import cea708 as C
+    from gstbad.io import cea708 as C
 
     df0 = bytes([C.CMD_DF0, 0x20, 30, 50, 0x01, 15, 0])
     pkt1 = _dtvcc_packet(_svc_block(1, df0 + b"CAPTION" + bytes([0x03])))
@@ -323,7 +323,7 @@ import pytest
 
 
 def _pango_ok():
-    from gstbad_tpu.io import cea708 as C
+    from gstbad.io import cea708 as C
     return C.pango_available()
 
 
@@ -332,7 +332,7 @@ needs_pango708 = pytest.mark.skipif(not _pango_ok(),
 
 
 def _decoder_with_styled_text():
-    from gstbad_tpu.io import cea708 as C
+    from gstbad.io import cea708 as C
     dec = C.Cea708Decoder()
     df0 = bytes([C.CMD_DF0, 0x20, 30, 40, (0 << 4) | 1, 31, 0])
     # SPA: pen_size standard, italics+underline on the styled run
@@ -355,7 +355,7 @@ def _decoder_with_styled_text():
 
 
 def test_cea708_pen_state_snapshots():
-    from gstbad_tpu.io import cea708 as C
+    from gstbad.io import cea708 as C
     dec = _decoder_with_styled_text()
     win = dec.windows[0]
     assert "".join(chr(c) for c in win.text[0][:6]) == "ABCDEF"
@@ -368,7 +368,7 @@ def test_cea708_pen_state_snapshots():
 
 @needs_pango708
 def test_cea708_window_markup_spans():
-    from gstbad_tpu.io import cea708 as C
+    from gstbad.io import cea708 as C
     dec = _decoder_with_styled_text()
     markup = C.window_markup(dec.windows[0])
     # default-pen text renders inside a white-on-black span
@@ -383,7 +383,7 @@ def test_cea708_window_markup_spans():
 
 @needs_pango708
 def test_cea708_render_overlay_pango_geometry():
-    from gstbad_tpu.io import cea708 as C
+    from gstbad.io import cea708 as C
     dec = _decoder_with_styled_text()
     ov = C.render_overlay_pango(dec, 640, 480)
     a = ov[..., 0]
@@ -399,9 +399,9 @@ def test_cea708_render_overlay_pango_geometry():
 
 @needs_pango708
 def test_ceaccoverlay_element_pango_face():
-    import gstbad_tpu as gt
-    from gstbad_tpu.core.pipeline import Pipeline
-    from gstbad_tpu.io import cea708 as C
+    import gstbad as gt
+    from gstbad.core.pipeline import Pipeline
+    from gstbad.io import cea708 as C
     df0 = bytes([C.CMD_DF0, 0x20, 30, 40, 0x01, 15, 0])
     seq = df0 + b"CAPTION" + bytes([0x03])
     cc = _cc_data_from_dtvcc(_dtvcc_packet(_svc_block(1, seq))) \
@@ -433,7 +433,7 @@ def test_ceaccoverlay_element_pango_face():
 # -- line21 waveform oracle: zvbi's REAL adaptive bit slicer ------------------
 
 def _zvbi_ok():
-    from gstbad_tpu.io import zvbi
+    from gstbad.io import zvbi
     return zvbi.available()
 
 
@@ -445,8 +445,8 @@ needs_zvbi = pytest.mark.skipif(not _zvbi_ok(),
 def test_line21_golden_waveforms_slice_with_zvbi():
     """golden/line21 encode_line -> vbi_raw_decode round-trips every
     byte pair through the exact slicer the reference stack uses."""
-    from gstbad_tpu.golden import line21 as G
-    from gstbad_tpu.io import zvbi
+    from gstbad.golden import line21 as G
+    from gstbad.io import zvbi
     rng = np.random.default_rng(11)
     pairs = [(0x14, 0x2C), (0x00, 0x00), (0x7F, 0x7F)] + [
         tuple(rng.integers(0, 128, 2)) for _ in range(25)]
@@ -460,8 +460,8 @@ def test_line21_golden_waveforms_slice_with_zvbi():
 def test_line21_device_encoder_slices_with_zvbi():
     """ops/line21.encode_lines (the device path) produces waveforms
     zvbi slices back byte-exact too."""
-    from gstbad_tpu.golden import line21 as G
-    from gstbad_tpu.io import zvbi
+    from gstbad.golden import line21 as G
+    from gstbad.io import zvbi
     rng = np.random.default_rng(12)
     vals = rng.integers(0, 128, (8, 2))
     pairs = np.asarray([[G.parity_byte(int(a)), G.parity_byte(int(b))]

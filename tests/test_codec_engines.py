@@ -1,5 +1,5 @@
 """VP8 / AV1 / MPEG-2 stateless-decoder base layers
-(gstbad_tpu/codecs/{vp8,av1,mpeg2}.py vs
+(gstbad/codecs/{vp8,av1,mpeg2}.py vs
 gst-libs/gst/codecs/gst{vp8,av1,mpeg2}decoder.c).
 
 Real streams from libvpx / libaom / mpeg2video; output order checked
@@ -8,14 +8,14 @@ against the corresponding libavcodec decoders.
 
 import pytest
 
-from gstbad_tpu.codecs.av1 import Av1Decoder
-from gstbad_tpu.codecs.mpeg2 import Mpeg2Decoder
-from gstbad_tpu.codecs.vp8 import Vp8Decoder
-from gstbad_tpu.io import mpegvideo as mv
+from gstbad.codecs.av1 import Av1Decoder
+from gstbad.codecs.mpeg2 import Mpeg2Decoder
+from gstbad.codecs.vp8 import Vp8Decoder
+from gstbad.io import mpegvideo as mv
 
 
 def _oracle():
-    from gstbad_tpu.io import codecoracle
+    from gstbad.io import codecoracle
     return codecoracle
 
 
@@ -61,13 +61,13 @@ def test_vp8_copy_semantics_order():
     """copy_buffer_to_golden == 2 must read the freshly-updated altref
     (the reference updates alt before golden,
     gstvp8decoder.c:225-266)."""
-    from gstbad_tpu.codecs.vp8 import Vp8Picture
+    from gstbad.codecs.vp8 import Vp8Picture
     d = Vp8Decoder()
     d.wait_keyframe = False
     old_last = Vp8Picture(system_frame_number=100)
     d.last_picture = d.golden_ref_picture = d.alt_ref_picture = old_last
 
-    import gstbad_tpu.io.vp8 as iovp8
+    import gstbad.io.vp8 as iovp8
     hdr = iovp8.FrameHdr()
     hdr.key_frame = False
     hdr.refresh_alternate_frame = True
@@ -136,7 +136,7 @@ def test_av1_hidden_frames_enter_dpb_not_output():
     d = Av1Decoder()
     n_outs = 0
     hidden_seen = False
-    from gstbad_tpu.io import av1obu as av1
+    from gstbad.io import av1obu as av1
     for i, p in enumerate(pkts):
         for o in av1.split_obu_stream(p.data):
             if o.obu_type == av1.OBU_FRAME:

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from gstbad_tpu.core.harness import Harness
-from gstbad_tpu.core.spec import MediaSpec, VideoFormat
-from gstbad_tpu.golden import coloreffects as golden
+from gstbad.core.harness import Harness
+from gstbad.core.spec import MediaSpec, VideoFormat
+from gstbad.golden import coloreffects as golden
 
 
 def _img(rng, h=21, w=37):

@@ -4,10 +4,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gstbad_tpu.core.harness import Harness
-from gstbad_tpu.core.spec import MediaSpec, VideoFormat
-from gstbad_tpu.golden import ssim as golden
-from gstbad_tpu.ops import ssim as ops
+from gstbad.core.harness import Harness
+from gstbad.core.spec import MediaSpec, VideoFormat
+from gstbad.golden import ssim as golden
+from gstbad.ops import ssim as ops
 
 
 @pytest.mark.parametrize("h,w", [(32, 48), (24, 24), (17, 31), (100, 7)])
@@ -71,7 +71,7 @@ def test_iqa_element(rng):
 def test_iqa_n_pad_aggregation(rng):
     """iqa.c:336-400: first pad = reference, every other pad scored; the
     IQA message carries a dssim per pad."""
-    import gstbad_tpu as gt
+    import gstbad as gt
     p = gt.parse_launch(
         "videotestsrc pattern=gradient width=32 height=32 format=AYUV "
         "name=ref ! m.  "
@@ -96,7 +96,7 @@ def test_iqa_n_pad_aggregation(rng):
 
 def test_dssim_identical_is_zero(rng):
     import jax.numpy as jnp
-    from gstbad_tpu.ops import dssim as d
+    from gstbad.ops import dssim as d
     img = jnp.asarray(rng.integers(0, 256, (2, 96, 128, 3), dtype=np.uint8))
     score, fmap = d.dssim_rgb(img, img)
     assert np.asarray(score).max() < 1e-4
@@ -107,7 +107,7 @@ def test_dssim_identical_is_zero(rng):
 def test_dssim_orders_degradations(rng):
     """More degradation -> larger dssim; 0 = identical (1/ssim - 1)."""
     import jax.numpy as jnp
-    from gstbad_tpu.ops import dssim as d
+    from gstbad.ops import dssim as d
     img = rng.integers(0, 256, (1, 96, 128, 3), dtype=np.uint8)
     mild = np.clip(img.astype(int)
                    + rng.normal(0, 4, img.shape), 0, 255).astype(np.uint8)
@@ -123,7 +123,7 @@ def test_dssim_multiscale_sees_lowfreq(rng):
     """A low-frequency luminance shift must register (single-scale SSIM on
     tiny windows underweights it; the coarse pyramid scales catch it)."""
     import jax.numpy as jnp
-    from gstbad_tpu.ops import dssim as d
+    from gstbad.ops import dssim as d
     img = rng.integers(64, 192, (1, 128, 128, 3), dtype=np.uint8)
     grad = (np.linspace(0, 30, 128)[None, :, None, None]
             .transpose(0, 1, 2, 3))
@@ -133,7 +133,7 @@ def test_dssim_multiscale_sees_lowfreq(rng):
 
 
 def test_iqa_multiscale_dssim_in_pipeline(rng):
-    import gstbad_tpu as gt
+    import gstbad as gt
     p2 = gt.parse_launch(
         "videotestsrc pattern=gradient width=64 height=48 format=GRAY8 "
         "! tee name=t  t. ! iqa_el.  t. ! smooth ! iqa_el. "

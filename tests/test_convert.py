@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.harness import Harness
-from gstbad_tpu.core.spec import MediaSpec, VideoFormat
+import gstbad as gt
+from gstbad.core.harness import Harness
+from gstbad.core.spec import MediaSpec, VideoFormat
 
 
 def _run(img, src, dst):
@@ -43,7 +43,7 @@ def test_rgb_yuv_roundtrip_close(rng):
     p = gt.parse_launch("videoconvert format=AYUV "
                         "! videoconvert format=BGRx ! fakesink")
     p.negotiate(MediaSpec(kind="video", format="BGRx", width=24, height=16))
-    from gstbad_tpu.core.frame import FrameBatch
+    from gstbad.core.frame import FrameBatch
     import jax.numpy as jnp
     outs = p.run(inputs=FrameBatch.make(jnp.asarray(img)))
     got = np.asarray(outs[0].data).astype(int)
@@ -55,7 +55,7 @@ def test_i420_ayuv_roundtrip(rng):
     y = rng.integers(0, 256, (1, 16, 24), dtype=np.uint8)
     u = rng.integers(0, 256, (1, 8, 12), dtype=np.uint8)
     v = rng.integers(0, 256, (1, 8, 12), dtype=np.uint8)
-    from gstbad_tpu.core.frame import FrameBatch
+    from gstbad.core.frame import FrameBatch
     import jax.numpy as jnp
     p = gt.parse_launch("videoconvert format=AYUV "
                         "! videoconvert format=I420 ! fakesink")
@@ -74,10 +74,10 @@ def test_rgb16_pack_unpack_bit_replication(rng):
     """8-bit -> 565 -> 8-bit uses truncating pack and bit-replicating
     expand (GStreamer video-format.c), so round-tripped values match the
     replication of their truncated fields exactly."""
-    import gstbad_tpu as gt
-    from gstbad_tpu.core.frame import FrameBatch
-    from gstbad_tpu.core.pipeline import Pipeline
-    from gstbad_tpu.core.spec import MediaSpec
+    import gstbad as gt
+    from gstbad.core.frame import FrameBatch
+    from gstbad.core.pipeline import Pipeline
+    from gstbad.core.spec import MediaSpec
 
     img = rng.integers(0, 256, (2, 8, 16, 4), dtype=np.uint8)
     for fmt, bits in (("RGB16", (5, 6, 5)), ("BGR16", (5, 6, 5)),
@@ -104,7 +104,7 @@ def test_rgb16_pack_unpack_bit_replication(rng):
 def test_rgb16_testsrc_and_yuv_path(rng):
     """videotestsrc renders RGB16 directly; converting to AYUV matches
     the BGRx source converted to AYUV within 5/6-bit quantization."""
-    import gstbad_tpu as gt
+    import gstbad as gt
 
     outs = {}
     for fmt in ("RGB16", "BGRx"):

@@ -4,9 +4,9 @@ messages — the GstHarness-style smoke layer."""
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.harness import Harness
-from gstbad_tpu.core.spec import MediaSpec, VideoFormat, SpecError
+import gstbad as gt
+from gstbad.core.harness import Harness
+from gstbad.core.spec import MediaSpec, VideoFormat, SpecError
 
 
 def test_registry_has_priority_elements():
@@ -144,7 +144,7 @@ def test_multi_leaf_host_sinks_see_only_their_branch(rng):
 def test_midgraph_host_element_gets_own_stream(rng):
     """A mid-graph HOST element (accurip) must see ITS node's batches even
     when a downstream filter changes the data before the leaf."""
-    import gstbad_tpu.core.pipeline as pl
+    import gstbad.core.pipeline as pl
 
     p = gt.parse_launch(
         "audiotestsrc wave=sine channels=2 format=S16 samplesperbuffer=256 "
@@ -163,7 +163,7 @@ def test_midgraph_host_element_gets_own_stream(rng):
 
 def test_control_curves(rng):
     """GST_PARAM_CONTROLLABLE analog: per-frame property automation."""
-    from gstbad_tpu.golden.gaudieffects import burn as g_burn
+    from gstbad.golden.gaudieffects import burn as g_burn
     p = gt.parse_launch("videotestsrc pattern=gradient width=24 height=16 "
                         "format=BGRx ! burn ! fakesink")
     el = p.elements[1]
@@ -182,7 +182,7 @@ def test_control_rejects_non_controllable():
 
 
 def test_pipeline_tracer():
-    from gstbad_tpu.utils import PipelineTracer
+    from gstbad.utils import PipelineTracer
     p = gt.parse_launch("videotestsrc width=16 height=16 ! burn ! fakesink")
     tracer = PipelineTracer(p)
     p.run(n_frames=4, window=4)
@@ -193,7 +193,7 @@ def test_pipeline_tracer():
 def test_multiple_host_sources_route_independently(rng):
     """Regression (core): each input-less node must receive ITS OWN
     host-source window — previously every branch got source[0]'s batch."""
-    import gstbad_tpu as gt
+    import gstbad as gt
     a = rng.integers(0, 256, (4, 8, 8, 4), np.uint8)
     b = rng.integers(0, 256, (4, 8, 8, 4), np.uint8)
     p = gt.parse_launch(
@@ -218,9 +218,9 @@ def test_debug_taps_match_standalone(rng):
     """Pipeline.compile(taps=...) materializes an intermediate element's
     output from the FUSED program; it must equal the standalone element's
     output on the same input (SURVEY.md §7 hard-part 5)."""
-    import gstbad_tpu as gt
-    from gstbad_tpu.core.harness import Harness
-    from gstbad_tpu.core.spec import MediaSpec, VideoFormat
+    import gstbad as gt
+    from gstbad.core.harness import Harness
+    from gstbad.core.spec import MediaSpec, VideoFormat
 
     p = gt.parse_launch(
         "videotestsrc pattern=bars width=32 height=16 format=BGRx "
@@ -251,8 +251,8 @@ def test_debug_taps_match_standalone(rng):
 
 
 def test_tracer_per_element_profile(rng):
-    import gstbad_tpu as gt
-    from gstbad_tpu.utils.trace import PipelineTracer
+    import gstbad as gt
+    from gstbad.utils.trace import PipelineTracer
 
     p = gt.parse_launch(
         "videotestsrc pattern=bars width=64 height=32 format=BGRx "
@@ -273,7 +273,7 @@ def test_insert_after_live():
     """Insert a filter into a RUNNING pipeline: the edit recompiles, the
     source's frame counter carries across (window 2 continues the stream),
     and the inserted element takes effect."""
-    from gstbad_tpu.golden import gaudieffects as g
+    from gstbad.golden import gaudieffects as g
 
     p = gt.parse_launch("videotestsrc name=src pattern=bars width=128 "
                         "height=16 format=BGRx ! burn name=b ! fakesink")
@@ -339,7 +339,7 @@ def test_lut_chain_fusion_bitexact(rng):
     """solarize!chromium!dodge!burn composes to ONE byte-LUT pass
     (Element.byte_map); output must be bit-identical to fuse_luts=False."""
     import jax.numpy as jnp
-    from gstbad_tpu.core.frame import FrameBatch
+    from gstbad.core.frame import FrameBatch
 
     img = rng.integers(0, 256, (4, 16, 128, 4), dtype=np.uint8)
     outs = {}
@@ -357,8 +357,8 @@ def test_lut_chain_fusion_respects_taps(rng):
     """A debug tap on an interior LUT node must still see that node's own
     output (the run breaks at protected nodes)."""
     import jax.numpy as jnp
-    from gstbad_tpu.core.frame import FrameBatch
-    from gstbad_tpu.golden import gaudieffects as g
+    from gstbad.core.frame import FrameBatch
+    from gstbad.golden import gaudieffects as g
 
     img = rng.integers(0, 256, (2, 16, 128, 4), dtype=np.uint8)
     p = gt.parse_launch("solarize ! dodge ! burn ! fakesink")

@@ -9,9 +9,9 @@ with explicit sigma (±1, cv's softdouble kernel) and bilateral
 import numpy as np
 import pytest
 
-from gstbad_tpu.core.harness import Harness
-from gstbad_tpu.core.spec import MediaSpec, VideoFormat
-from gstbad_tpu.golden import cv as golden
+from gstbad.core.harness import Harness
+from gstbad.core.spec import MediaSpec, VideoFormat
+from gstbad.golden import cv as golden
 
 
 def _rgb(rng, h=48, w=64):
@@ -151,8 +151,8 @@ def test_retinex(rng, method, kw):
                                     "ccorr-normed", "ccoeff",
                                     "ccoeff-normed"])
 def test_templatematch(rng, method):
-    from gstbad_tpu.core.pipeline import parse_launch
-    from gstbad_tpu.core.frame import FrameBatch
+    from gstbad.core.pipeline import parse_launch
+    from gstbad.core.frame import FrameBatch
     import jax.numpy as jnp
 
     img = _rgb(rng, h=40, w=56)
@@ -188,7 +188,7 @@ def test_templatematch_display_draws_rectangle(rng):
 
 def test_cv_elements_in_launch_string(rng):
     """Launch-string integration: videotestsrc RGB -> cv chain."""
-    import gstbad_tpu as gt
+    import gstbad as gt
     p = gt.parse_launch(
         "videotestsrc pattern=gradient width=64 height=48 format=RGB "
         "! cvsmooth type=blur ! cvsobel ! fakesink")
@@ -266,10 +266,10 @@ def test_dewarp_passthrough(rng):
 
 
 def test_motioncells_detects_moving_block(rng):
-    import gstbad_tpu as gt
-    from gstbad_tpu.core.frame import FrameBatch
+    import gstbad as gt
+    from gstbad.core.frame import FrameBatch
     import jax.numpy as jnp
-    from gstbad_tpu.core.registry import make
+    from gstbad.core.registry import make
 
     h, w = 80, 80
     frames = np.zeros((6, h, w, 3), np.uint8)
@@ -316,7 +316,7 @@ def _pil_transform(img_rgb, src_bytes, dst_bytes, intent=0):
 
 
 def _wide_profile_bytes():
-    from gstbad_tpu.io import icc
+    from gstbad.io import icc
     wide = icc.IccProfile(
         matrix=np.array([[0.60974, 0.20528, 0.14919],
                          [0.31111, 0.62567, 0.06322],
@@ -370,7 +370,7 @@ def test_lcms_preserve_black(rng):
 
 
 def test_lcms_parses_own_roundtrip(tmp_path):
-    from gstbad_tpu.io import icc
+    from gstbad.io import icc
     wide = _wide_profile_bytes()
     prof = icc.parse_icc(wide)
     assert prof.trc[0].kind == "gamma"

@@ -5,7 +5,7 @@ duration conversion year=365d / month=30d)."""
 
 import pytest
 
-from gstbad_tpu.io import dashmpd as mpd
+from gstbad.io import dashmpd as mpd
 
 MPD_HDR = ('<?xml version="1.0"?>'
            '<MPD xmlns="urn:mpeg:dash:schema:mpd:2011"'

@@ -5,10 +5,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.frame import FrameBatch
-from gstbad_tpu.core.pipeline import Node, Pipeline
-from gstbad_tpu.ops import stereo
+import gstbad as gt
+from gstbad.core.frame import FrameBatch
+from gstbad.core.pipeline import Node, Pipeline
+from gstbad.ops import stereo
 
 cv2 = pytest.importorskip("cv2")
 

@@ -9,11 +9,11 @@ import fractions
 import numpy as np
 import jax.numpy as jnp
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.frame import FrameBatch
-from gstbad_tpu.core.pipeline import Pipeline
-from gstbad_tpu.core.spec import MediaSpec
-from gstbad_tpu.io import dvbsub
+import gstbad as gt
+from gstbad.core.frame import FrameBatch
+from gstbad.core.pipeline import Pipeline
+from gstbad.core.spec import MediaSpec
+from gstbad.io import dvbsub
 
 
 class BitWriter:
@@ -284,7 +284,7 @@ def test_scale_linearly_semantics():
     vs_image_scale_linear_RGBA algorithm: 16.16 accumulator with
     ((src-1)<<16)/(dest-1) increments, 8-bit blend weights, exact
     endpoints, interpolated (not replicated) interiors."""
-    from gstbad_tpu.io.dvbsub import _scale_linearly
+    from gstbad.io.dvbsub import _scale_linearly
 
     img = np.zeros((2, 2, 4), np.uint8)
     img[0, 0] = 0

@@ -7,12 +7,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.frame import FrameBatch
-from gstbad_tpu.core.pipeline import Pipeline
-from gstbad_tpu.core.spec import MediaSpec
-from gstbad_tpu.io import dvbsub as dec
-from gstbad_tpu.io import dvbsubenc as enc
+import gstbad as gt
+from gstbad.core.frame import FrameBatch
+from gstbad.core.pipeline import Pipeline
+from gstbad.core.spec import MediaSpec
+from gstbad.io import dvbsub as dec
+from gstbad.io import dvbsubenc as enc
 
 H, W = 40, 120
 

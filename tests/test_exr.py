@@ -8,10 +8,10 @@ system OpenEXR."""
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.pipeline import Pipeline
-from gstbad_tpu.io import exr
-from gstbad_tpu.io.typefind import find_type
+import gstbad as gt
+from gstbad.core.pipeline import Pipeline
+from gstbad.io import exr
+from gstbad.io.typefind import find_type
 
 pytestmark = pytest.mark.skipif(not exr.available(),
                                 reason="OpenEXRCore not available")
@@ -164,8 +164,8 @@ def test_videoconvert_argb64_roundtrip(rng):
     """8-bit RGBA -> ARGB64 -> RGBA is lossless ((v*257) >> 8 == v)."""
     img = rng.integers(0, 256, (2, 8, 10, 4), np.uint8)
     import jax.numpy as jnp
-    from gstbad_tpu.core.frame import FrameBatch
-    from gstbad_tpu.core.spec import MediaSpec
+    from gstbad.core.frame import FrameBatch
+    from gstbad.core.spec import MediaSpec
 
     src = gt.make("videotestsrc", pattern="solid-color", format="RGBA",
                   width=10, height=8)

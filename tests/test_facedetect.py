@@ -9,15 +9,15 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.harness import Harness
-from gstbad_tpu.core.spec import MediaSpec
-from gstbad_tpu.io.haarcascade import parse_cascade, HaarCascade
-from gstbad_tpu.ops import haar
+import gstbad as gt
+from gstbad.core.harness import Harness
+from gstbad.core.spec import MediaSpec
+from gstbad.io.haarcascade import parse_cascade, HaarCascade
+from gstbad.ops import haar
 
 HAAR_DIR = "/usr/share/opencv4/haarcascades/"
 ALT2 = HAAR_DIR + "haarcascade_frontalface_alt2.xml"
-FIXTURE = os.path.join(os.path.dirname(__file__), "..", "gstbad_tpu",
+FIXTURE = os.path.join(os.path.dirname(__file__), "..", "gstbad",
                        "data", "face_fixture.npz")
 
 pytestmark = pytest.mark.skipif(

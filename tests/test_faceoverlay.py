@@ -7,10 +7,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.frame import FrameBatch
-from gstbad_tpu.core.pipeline import Pipeline
-from gstbad_tpu.core.spec import MediaSpec
+import gstbad as gt
+from gstbad.core.frame import FrameBatch
+from gstbad.core.pipeline import Pipeline
+from gstbad.core.spec import MediaSpec
 
 
 def _frame_with_face(h=64, w=96, fy=16, fx=40, fh=28, fw=22):

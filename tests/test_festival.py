@@ -8,9 +8,9 @@ import threading
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.pipeline import Pipeline
-from gstbad_tpu.io import festival as fest
+import gstbad as gt
+from gstbad.core.pipeline import Pipeline
+from gstbad.io import festival as fest
 
 
 def make_wav(samples, rate=16000):

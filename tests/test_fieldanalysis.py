@@ -4,12 +4,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gstbad_tpu.core.frame import (FLAG_INTERLACED, FLAG_ONEFIELD, FLAG_RFF,
+from gstbad.core.frame import (FLAG_INTERLACED, FLAG_ONEFIELD, FLAG_RFF,
                                    FLAG_TFF)
-from gstbad_tpu.core.harness import Harness
-from gstbad_tpu.core.spec import MediaSpec, VideoFormat
-from gstbad_tpu.golden import fieldanalysis as golden
-from gstbad_tpu.ops import fieldanalysis as ops
+from gstbad.core.harness import Harness
+from gstbad.core.spec import MediaSpec, VideoFormat
+from gstbad.golden import fieldanalysis as golden
+from gstbad.ops import fieldanalysis as ops
 
 H, W = 32, 48
 

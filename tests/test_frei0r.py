@@ -9,8 +9,8 @@ bit-exactly through the dlopen boundary.
 import numpy as np
 import pytest
 
-from gstbad_tpu.io import frei0r as f0r
-from gstbad_tpu.elements.video.frei0r import (register_frei0r_elements,
+from gstbad.io import frei0r as f0r
+from gstbad.elements.video.frei0r import (register_frei0r_elements,
                                               _canon, _prop_name)
 
 
@@ -120,7 +120,7 @@ def test_element_names_and_registry(elements):
     assert sorted(elements) == [
         "frei0r-filter-fixbrightness", "frei0r-filter-fixlabeler",
         "frei0r-mixer-fixblend", "frei0r-src-fixgradient"]
-    from gstbad_tpu.core import registry
+    from gstbad.core import registry
     for name in elements:
         assert name in registry.element_names()
 

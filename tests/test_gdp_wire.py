@@ -5,8 +5,8 @@ import struct
 
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.io import gdp
+import gstbad as gt
+from gstbad.io import gdp
 
 
 def test_crc_table_golden():

@@ -5,9 +5,9 @@ integer gather)."""
 import numpy as np
 import pytest
 
-from gstbad_tpu.core.harness import Harness
-from gstbad_tpu.core.spec import MediaSpec, VideoFormat
-from gstbad_tpu.golden import geometric as golden
+from gstbad.core.harness import Harness
+from gstbad.core.spec import MediaSpec, VideoFormat
+from gstbad.golden import geometric as golden
 
 W, H = 40, 30
 

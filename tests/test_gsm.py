@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.pipeline import Pipeline, parse_launch
-from gstbad_tpu.io import gsmcodec
+import gstbad as gt
+from gstbad.core.pipeline import Pipeline, parse_launch
+from gstbad.io import gsmcodec
 
 pytestmark = pytest.mark.skipif(not gsmcodec.available(),
                                 reason="libgsm not present")

@@ -1,4 +1,4 @@
-"""H.264 stateless-decoder base layer (gstbad_tpu/codecs/h264.py vs
+"""H.264 stateless-decoder base layer (gstbad/codecs/h264.py vs
 gst-libs/gst/codecs/gsth264decoder.c).
 
 Two oracle tiers:
@@ -14,15 +14,15 @@ Two oracle tiers:
 
 import pytest
 
-from gstbad_tpu.codecs import h264 as dec
-from gstbad_tpu.codecs.h264 import H264Decoder
-from gstbad_tpu.io import h264 as h
+from gstbad.codecs import h264 as dec
+from gstbad.codecs.h264 import H264Decoder
+from gstbad.io import h264 as h
 
 from helpers import h264synth as syn
 
 
 def _oracle():
-    from gstbad_tpu.io import codecoracle
+    from gstbad.io import codecoracle
     return codecoracle
 
 

@@ -3,8 +3,8 @@
 
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.io import h264 as h
+import gstbad as gt
+from gstbad.io import h264 as h
 
 # h264parse.c:70-135 vectors
 H264_AUD = bytes([0x00, 0x00, 0x00, 0x01, 0x09, 0xf0])

@@ -4,9 +4,9 @@ libraries — encode/decode round trips."""
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.pipeline import Pipeline, parse_launch
-from gstbad_tpu.io import h265
+import gstbad as gt
+from gstbad.core.pipeline import Pipeline, parse_launch
+from gstbad.io import h265
 
 pytestmark = pytest.mark.skipif(not h265.available(),
                                 reason="libx265/libde265 not present")

@@ -1,4 +1,4 @@
-"""H.265 stateless-decoder base layer (gstbad_tpu/codecs/h265.py vs
+"""H.265 stateless-decoder base layer (gstbad/codecs/h265.py vs
 gst-libs/gst/codecs/gsth265decoder.c).
 
 Oracles:
@@ -15,12 +15,12 @@ Oracles:
 
 import pytest
 
-from gstbad_tpu.codecs.h265 import H265Decoder
-from gstbad_tpu.io import h265nal as hv
+from gstbad.codecs.h265 import H265Decoder
+from gstbad.io import h265nal as hv
 
 
 def _oracle():
-    from gstbad_tpu.io import codecoracle
+    from gstbad.io import codecoracle
     return codecoracle
 
 
@@ -64,7 +64,7 @@ def test_against_libde265():
     """Cross-oracle: lossless x265 frames carry their index in the
     last luma row (codecoracle fill_frame: y[h-1,x] = x+h-1+3i);
     libde265's output order must equal our engine's."""
-    h265 = pytest.importorskip("gstbad_tpu.io.h265")
+    h265 = pytest.importorskip("gstbad.io.h265")
     if not h265.available():
         pytest.skip("libde265 unavailable")
     co = _oracle()
@@ -190,7 +190,7 @@ def test_cra_join_drops_rasl():
 
 
 def _with_params(pkt, param_nals):
-    from gstbad_tpu.io.codecoracle import Packet
+    from gstbad.io.codecoracle import Packet
     return Packet(hv.to_bytestream(param_nals) + pkt.data,
                   pkt.pts, pkt.dts, pkt.key)
 

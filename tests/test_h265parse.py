@@ -3,9 +3,9 @@
 
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.io import h264 as h26x
-from gstbad_tpu.io import h265nal as h
+import gstbad as gt
+from gstbad.io import h264 as h26x
+from gstbad.io import h265nal as h
 
 # h265parse.c:52-109 (16x16 x265 stream + HDR SEIs)
 H265_VPS = bytes([

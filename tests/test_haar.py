@@ -11,12 +11,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.frame import FrameBatch
-from gstbad_tpu.core.pipeline import Pipeline
-from gstbad_tpu.core.spec import MediaSpec
-from gstbad_tpu.io.haarcascade import parse_cascade
-from gstbad_tpu.ops import haar
+import gstbad as gt
+from gstbad.core.frame import FrameBatch
+from gstbad.core.pipeline import Pipeline
+from gstbad.core.spec import MediaSpec
+from gstbad.io.haarcascade import parse_cascade
+from gstbad.ops import haar
 
 cv2 = pytest.importorskip("cv2")
 
@@ -138,10 +138,10 @@ def test_tree_traversal():
 def test_real_cascades_load_and_reject_noise():
     for name, stages, feats in (("fist.xml", 17, 142),
                                 ("palm.xml", 5, 112)):
-        casc = parse_cascade(f"gstbad_tpu/data/{name}")
+        casc = parse_cascade(f"gstbad/data/{name}")
         assert len(casc.stages) == stages
         assert casc.n_features == feats
-    fist = parse_cascade("gstbad_tpu/data/fist.xml")
+    fist = parse_cascade("gstbad/data/fist.xml")
     noise = np.random.default_rng(0).integers(0, 256, (64, 96)
                                               ).astype(np.uint8)
     passed, _ = haar.eval_cascade(jnp.asarray(noise), fist)

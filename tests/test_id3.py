@@ -3,7 +3,7 @@ reference's quirks."""
 
 import struct
 
-from gstbad_tpu.io import id3
+from gstbad.io import id3
 
 TAGS = {"title": "Test Title", "artist": "Ärtist", "album": "Album",
         "track-number": 3, "track-count": 12, "date": 2020,

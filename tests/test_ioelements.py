@@ -5,9 +5,9 @@ reference element names)."""
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.spec import MediaSpec
-from gstbad_tpu.io import aiff as aiff_io
+import gstbad as gt
+from gstbad.core.spec import MediaSpec
+from gstbad.io import aiff as aiff_io
 
 KEY = "1f9423681beb9a79215820f6bda73d0f"
 IV = "e9aa8e834d8d70b7e0d254ff670dd718"

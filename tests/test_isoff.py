@@ -8,7 +8,7 @@ import struct
 
 import pytest
 
-from gstbad_tpu.io import isoff
+from gstbad.io import isoff
 
 DATA = pathlib.Path(__file__).parent / "data" / "isoff"
 CONSTS = json.loads((DATA / "constants.json").read_text())

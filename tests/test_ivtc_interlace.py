@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from gstbad_tpu.core.frame import FLAG_INTERLACED, FLAG_RFF, FLAG_TFF
-from gstbad_tpu.core.harness import Harness
-from gstbad_tpu.core.spec import MediaSpec, VideoFormat
-from gstbad_tpu.golden import ivtc as golden
+from gstbad.core.frame import FLAG_INTERLACED, FLAG_RFF, FLAG_TFF
+from gstbad.core.harness import Harness
+from gstbad.core.spec import MediaSpec, VideoFormat
+from gstbad.golden import ivtc as golden
 
 H, W = 24, 32
 
@@ -163,7 +163,7 @@ class TestFullDeinterlaceChain:
         """The reference's flagship analysis chain: progressive content is
         2:3 telecined, fieldanalysis re-detects and flags it, ivtc recovers
         progressive frames — all in one fused graph."""
-        import gstbad_tpu as gt
+        import gstbad as gt
         base = rng.integers(0, 200, (H, W), dtype=np.uint8)
         p = gt.parse_launch(
             f"videotestsrc pattern=ball width={W} height={H} format=GRAY8 "
@@ -176,7 +176,7 @@ class TestFullDeinterlaceChain:
         assert n_out >= 8  # 16 prog frames -> 20 tele -> 19 analyzed -> ivtc
         msgs = p.bus.pop(element="fieldanalysis")
         assert len(msgs) >= 8
-        from gstbad_tpu.golden.fieldanalysis import TC_MIXED, TC_PROGRESSIVE
+        from gstbad.golden.fieldanalysis import TC_MIXED, TC_PROGRESSIVE
         concls = [m["conclusion"] for m in msgs]
         assert any(c in (TC_MIXED, TC_PROGRESSIVE) for c in concls), concls
 
@@ -210,7 +210,7 @@ class TestInterlaceAlternate:
     frame (gstinterlace.c:1288-1410)."""
 
     def test_alternate_reweaves_to_woven_output(self, rng):
-        from gstbad_tpu.core.frame import FLAG_TOP_FIELD, FLAG_ONEFIELD
+        from gstbad.core.frame import FLAG_TOP_FIELD, FLAG_ONEFIELD
         frames = _frames(8, rng)
 
         h_w = Harness("interlace", pattern="2:3")
@@ -266,22 +266,28 @@ class TestInterlaceAlternate:
 
 
 def test_comb_pallas_kernel_matches_xla_and_golden():
-    """The TPU pallas chain kernel (interpret mode here) must equal the
-    XLA blocked scan and the C recurrence bit-for-bit."""
+    """The Triton chain kernel (interpret mode here) must equal the XLA
+    blocked scan and the C recurrence bit-for-bit."""
     import numpy as np
     import jax.numpy as jnp
-    from gstbad_tpu.ops import comb
+    from gstbad.ops import comb
 
     rng = np.random.default_rng(11)
-    for shape in ((37, 150), (2, 61, 300)):
-        m = rng.random(shape) < 0.35
-        over_xla = np.asarray(comb._scan_rows(jnp.asarray(m)))
-        over_pl = np.asarray(
-            comb._scan_rows_pallas(jnp.asarray(m), interpret=True))
-        np.testing.assert_array_equal(over_xla, over_pl)
+    for shape in ((1, 41, 150), (2, 65, 300)):
+        y = rng.integers(0, 256, shape, dtype=np.uint8)
+        y[:, 1::2, 40:] = np.maximum(y[:, 1::2, 40:], 230)
+        ids = jnp.arange(shape[0], dtype=jnp.int32)
+        _, over_pl = comb._comb_pallas(jnp.asarray(y), ids, ids,
+                                       emit_mask=True, interpret=True)
+        over_xla, _ = comb._mask_reference(jnp.asarray(y), 2, 2)
+        np.testing.assert_array_equal(np.asarray(over_xla),
+                                      np.asarray(over_pl))
 
-    # C-recurrence reference: t[i] = m ? clamp(t[i] + t[i-1] + 1) : 0
-    m = (rng.random((50, 200)) < 0.5)
+    # C-recurrence reference: t[i] = m ? clamp(t[i] + t[i-1] + 1) : 0,
+    # on the outlier mask of a frame
+    y = rng.integers(0, 256, (54, 200), dtype=np.uint8)
+    y[1::2] = np.maximum(y[1::2], 200)
+    m = np.asarray(comb._outlier(y[1:-3], y[2:-2], y[3:-1]))
     t = np.zeros(200, np.int64)
     over_ref = np.zeros_like(m)
     for r in range(m.shape[0]):
@@ -296,6 +302,7 @@ def test_comb_pallas_kernel_matches_xla_and_golden():
             over_ref[r, i] = t[i] > 100
     np.testing.assert_array_equal(
         np.asarray(comb._scan_rows(jnp.asarray(m))), over_ref)
-    np.testing.assert_array_equal(
-        np.asarray(comb._scan_rows_pallas(jnp.asarray(m), interpret=True)),
-        over_ref)
+    one = jnp.zeros(1, jnp.int32)
+    _, over_pl = comb._comb_pallas(jnp.asarray(y[None]), one, one,
+                                   emit_mask=True, interpret=True)
+    np.testing.assert_array_equal(np.asarray(over_pl)[0], over_ref)

@@ -11,10 +11,10 @@ import struct
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.io import exif as ex
-from gstbad_tpu.io import xmp as xmp_io
-from gstbad_tpu.io.jpeg import JpegParse, jif_mux
+import gstbad as gt
+from gstbad.io import exif as ex
+from gstbad.io import xmp as xmp_io
+from gstbad.io.jpeg import JpegParse, jif_mux
 
 cv2 = pytest.importorskip("cv2")
 

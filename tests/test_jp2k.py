@@ -7,7 +7,7 @@ paths the reference element takes.
 
 import pytest
 
-from gstbad_tpu.io import jp2k
+from gstbad.io import jp2k
 
 
 def _siz(w=64, h=64, xt=64, yt=64, ncomp=1):

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.pipeline import Pipeline, parse_launch
-from gstbad_tpu.elements.video import jpeg2000
+import gstbad as gt
+from gstbad.core.pipeline import Pipeline, parse_launch
+from gstbad.elements.video import jpeg2000
 
 pytestmark = pytest.mark.skipif(not jpeg2000.available(),
                                 reason="libopenjp2 not present")
@@ -45,7 +45,7 @@ def test_roundtrip_lossless_rgb(rng):
 
     class Spec:
         kind, format, width, height = "video", "RGB", 40, 32
-    from gstbad_tpu.core.spec import MediaSpec, VideoFormat
+    from gstbad.core.spec import MediaSpec, VideoFormat
     import fractions
     spec = MediaSpec(kind="video", format=VideoFormat.RGB, width=40,
                      height=32, framerate=fractions.Fraction(30, 1))
@@ -62,7 +62,7 @@ def test_roundtrip_lossless_rgb(rng):
 
 def test_progression_and_tiling_change_stream():
     import fractions
-    from gstbad_tpu.core.spec import MediaSpec, VideoFormat
+    from gstbad.core.spec import MediaSpec, VideoFormat
     spec = MediaSpec(kind="video", format=VideoFormat.RGB, width=64,
                      height=64, framerate=fractions.Fraction(30, 1))
     img = np.tile(np.arange(64, dtype=np.uint8), (64, 1))
@@ -89,7 +89,7 @@ def test_progression_and_tiling_change_stream():
 def test_gray8_path(rng):
     img = rng.integers(0, 256, (24, 32), np.uint8)
     import fractions
-    from gstbad_tpu.core.spec import MediaSpec, VideoFormat
+    from gstbad.core.spec import MediaSpec, VideoFormat
     spec = MediaSpec(kind="video", format=VideoFormat.GRAY8, width=32,
                      height=24, framerate=fractions.Fraction(30, 1))
     enc = gt.make("openjpegenc", **{"num-resolutions": 5})

@@ -4,7 +4,7 @@ vectors (tests/data/jpeg2000_frames.bin)."""
 import json
 import os
 
-import gstbad_tpu as gt
+import gstbad as gt
 
 DATA = os.path.dirname(__file__) + "/data"
 

@@ -9,9 +9,9 @@ mirrors one upstream GST_START_TEST case.
 import numpy as np
 import pytest
 
-from gstbad_tpu.elements.kate import KateDec, KateEnc, KateParse, KateTag
-from gstbad_tpu.io import kate as kate_io
-from gstbad_tpu.io.typefind import find_type
+from gstbad.elements.kate import KateDec, KateEnc, KateParse, KateTag
+from gstbad.io import kate as kate_io
+from gstbad.io.typefind import find_type
 
 NSEC = 1_000_000_000
 

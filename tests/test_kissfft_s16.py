@@ -9,7 +9,7 @@ against the round-2 scale model within per-butterfly rounding noise.
 import numpy as np
 import pytest
 
-from gstbad_tpu.ops import kissfft_s16 as K
+from gstbad.ops import kissfft_s16 as K
 
 
 def sround(x):
@@ -164,7 +164,7 @@ def test_batched_jax_matches_numpy(rng):
 def test_tracks_scale_model_within_rounding(rng):
     """The exact fixed-point spectra track the round-2 float scale model
     within per-butterfly rounding noise (a few LSB at nfft=256)."""
-    from gstbad_tpu.golden import ffts16 as g
+    from gstbad.golden import ffts16 as g
     x = (20000 * np.sin(2 * np.pi * 13 * np.arange(256) / 256)
          ).astype(np.int16)
     exact = g.fft_s16(x)
@@ -174,7 +174,7 @@ def test_tracks_scale_model_within_rounding(rng):
 
 def test_impulse_response():
     """FFT of a delta is flat at the aggregate fixed-point scale."""
-    from gstbad_tpu.golden.ffts16 import fft_scale
+    from gstbad.golden.ffts16 import fft_scale
     x = np.zeros(128, np.int16)
     x[0] = 32767
     r, i = K.kiss_fftr_s16(np, x.astype(np.int32), 128)

@@ -5,8 +5,8 @@ no system LADSPA plugins."""
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.io import ladspa as L
+import gstbad as gt
+from gstbad.io import ladspa as L
 
 
 @pytest.fixture(scope="module")
@@ -24,7 +24,7 @@ def plugins(plugin_dir):
 
 @pytest.fixture(scope="module")
 def registered(plugin_dir):
-    from gstbad_tpu.elements.audio.ladspa import \
+    from gstbad.elements.audio.ladspa import \
         register_ladspa_elements
     register_ladspa_elements(plugin_dir)
     return True

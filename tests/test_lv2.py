@@ -6,8 +6,8 @@ and no lilv."""
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.io import lv2 as L
+import gstbad as gt
+from gstbad.io import lv2 as L
 
 
 @pytest.fixture(scope="module")
@@ -25,7 +25,7 @@ def plugins(bundle_dir):
 
 @pytest.fixture(scope="module")
 def registered(bundle_dir):
-    from gstbad_tpu.elements.audio.lv2 import register_lv2_elements
+    from gstbad.elements.audio.lv2 import register_lv2_elements
     register_lv2_elements(bundle_dir)
 
 
@@ -177,7 +177,7 @@ def test_sine_phase_and_activate_reset(plugins):
 # -- elements ---------------------------------------------------------------
 
 def test_element_registration(registered):
-    from gstbad_tpu.core import registry
+    from gstbad.core import registry
     names = registry.element_names()
     assert "urn-gstbad-lv2-amp" in names
     assert "urn-gstbad-lv2-width" in names
@@ -250,7 +250,7 @@ def test_state_extension_preset_roundtrip():
     round-trips the restored values (r5 ledger close)."""
     import os
     import numpy as np
-    from gstbad_tpu.io import lv2
+    from gstbad.io import lv2
 
     bundle_dir = lv2.build_test_plugins()
     plugins = {p.uri: p for p in lv2.scan(bundle_dir)}
@@ -278,11 +278,11 @@ def test_state_extension_preset_roundtrip():
     assert snap["urn:gstbad:lv2:statefilter#table"][0] == table_blob
 
     # element surface: load_preset applies the state half too
-    from gstbad_tpu.elements.audio.lv2 import register_lv2_elements
-    import gstbad_tpu as gt
+    from gstbad.elements.audio.lv2 import register_lv2_elements
+    import gstbad as gt
     register_lv2_elements(bundle_dir)
     el = gt.make("urn-gstbad-lv2-statefilter")
-    from gstbad_tpu.core.spec import MediaSpec
+    from gstbad.core.spec import MediaSpec
     el.set_info(MediaSpec(kind="audio", format="F32", rate=48000,
                           channels=1))
     assert "steps" in el.get_preset_names()

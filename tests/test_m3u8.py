@@ -4,7 +4,7 @@ expected values)."""
 
 import pytest
 
-from gstbad_tpu.io import m3u8
+from gstbad.io import m3u8
 
 SEC = m3u8.GST_SECOND
 BASE = "http://localhost/test.m3u8"

@@ -2,7 +2,7 @@
 
 import pytest
 
-from gstbad_tpu.io import midi
+from gstbad.io import midi
 
 
 def _vlq(v):

@@ -5,9 +5,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.harness import Harness
-from gstbad_tpu.core.spec import AudioFormat, MediaSpec
+import gstbad as gt
+from gstbad.core.harness import Harness
+from gstbad.core.spec import AudioFormat, MediaSpec
 
 
 def test_spectrascope_pipeline():
@@ -57,7 +57,7 @@ def test_segmentclip():
 
 
 def test_speed():
-    from gstbad_tpu.golden.audio import speed_resample, speed_resample_indices
+    from gstbad.golden.audio import speed_resample, speed_resample_indices
 
     p = gt.parse_launch("audiotestsrc wave=sine samplesperbuffer=480 "
                         "! speed speed=2.0 ! fakesink")
@@ -73,14 +73,14 @@ def test_speed():
 
 
 def test_speed_matches_golden_walk(rng):
-    from gstbad_tpu.golden.audio import speed_resample
+    from gstbad.golden.audio import speed_resample
 
     x = (rng.random((2, 256, 2), np.float64) * 2 - 1).astype(np.float32)
     for speed in (0.5, 1.0, 1.7, 2.0, 3.3):
         el = gt.make("speed", speed=speed)
-        from gstbad_tpu.core.pipeline import Pipeline
-        from gstbad_tpu.core.spec import MediaSpec
-        from gstbad_tpu.core.frame import FrameBatch
+        from gstbad.core.pipeline import Pipeline
+        from gstbad.core.spec import MediaSpec
+        from gstbad.core.frame import FrameBatch
         p = Pipeline([el])
         p.negotiate(MediaSpec(kind="audio", format="F32", rate=48000,
                               channels=2))
@@ -91,13 +91,13 @@ def test_speed_matches_golden_walk(rng):
 
 
 def test_speed_s16_truncates_like_c_cast(rng):
-    from gstbad_tpu.golden.audio import speed_resample
+    from gstbad.golden.audio import speed_resample
 
     x = rng.integers(-32768, 32768, (1, 128, 1), dtype=np.int16)
     el = gt.make("speed", speed=1.5)
-    from gstbad_tpu.core.pipeline import Pipeline
-    from gstbad_tpu.core.spec import MediaSpec
-    from gstbad_tpu.core.frame import FrameBatch
+    from gstbad.core.pipeline import Pipeline
+    from gstbad.core.spec import MediaSpec
+    from gstbad.core.frame import FrameBatch
     p = Pipeline([el])
     p.negotiate(MediaSpec(kind="audio", format="S16", rate=44100, channels=1))
     outs = p.run(inputs=FrameBatch.make(jnp.asarray(x)))
@@ -133,7 +133,7 @@ def test_autoconvert_factories_caps_selection():
     el2.set_info(MediaSpec(kind="video", format="AYUV", width=16, height=16))
     assert el2.chosen.NAME == "gaussianblur"
     # end to end: the chosen converter actually transforms the stream
-    from gstbad_tpu.golden import gaudieffects as g
+    from gstbad.golden import gaudieffects as g
     p = gt.parse_launch(
         "videotestsrc pattern=ball width=16 height=16 format=BGRx "
         "! autoconvert factories=gaussianblur,solarize ! fakesink")
@@ -213,8 +213,8 @@ def _bilinear_window(img, left, top, cw, ch):
 
 
 def test_digitalzoom_crop_math_and_bilinear(rng):
-    from gstbad_tpu.core.harness import Harness
-    from gstbad_tpu.core.spec import MediaSpec, VideoFormat
+    from gstbad.core.harness import Harness
+    from gstbad.core.spec import MediaSpec, VideoFormat
     x = rng.integers(0, 256, (2, 24, 32, 4), np.uint8)
     for zoom in (1.0, 1.7, 2.0, 4.0):
         h = Harness("digitalzoom", zoom=zoom)
@@ -238,8 +238,8 @@ def test_digitalzoom_crop_math_and_bilinear(rng):
 
 
 def test_digitalzoom_i420_planes(rng):
-    from gstbad_tpu.core.harness import Harness
-    from gstbad_tpu.core.spec import MediaSpec, VideoFormat
+    from gstbad.core.harness import Harness
+    from gstbad.core.spec import MediaSpec, VideoFormat
     data = {"y": rng.integers(0, 256, (1, 24, 32), np.uint8),
             "u": rng.integers(0, 256, (1, 12, 16), np.uint8),
             "v": rng.integers(0, 256, (1, 12, 16), np.uint8)}
@@ -259,7 +259,7 @@ def test_digitalzoom_i420_planes(rng):
 
 
 def test_chopmydata_sizes_and_parser_fuzz(rng):
-    from gstbad_tpu.io.chop import ChopMyData
+    from gstbad.io.chop import ChopMyData
     # size distribution: [min,max] quantized to step
     c = ChopMyData(min_size=10, max_size=64, step_size=8, seed=3)
     chunks = c.push(bytes(rng.integers(0, 256, 4096, np.uint8)))
@@ -302,7 +302,7 @@ def test_testsrcbin_inline_and_uri(rng):
                                   np.asarray(p2.run(n_frames=2,
                                                     window=2)[0].data))
     # multi-stream URI -> disjoint chains
-    from gstbad_tpu.session.testbin import parse_testbin_uri, testbin_launch
+    from gstbad.session.testbin import parse_testbin_uri, testbin_launch
     streams = parse_testbin_uri("testbin://audio,freq=330+video,pattern=white")
     assert streams == [("audio", {"freq": "330"}),
                        ("video", {"pattern": "white"})]
@@ -320,7 +320,7 @@ def test_testsrcbin_inline_and_uri(rng):
 
 def test_clockselect_paces_play():
     import time as _time
-    from gstbad_tpu.session.play import Play
+    from gstbad.session.play import Play
     p = gt.parse_launch("videotestsrc pattern=black width=8 height=8 "
                         "framerate=120/1 ! clockselect clock-id=realtime "
                         "! fakesink")
@@ -360,7 +360,7 @@ def _fake_jpeg(w, h, subsamp=((2, 2), (1, 1), (1, 1))):
 
 
 def test_jpegparse_framing_and_headers():
-    from gstbad_tpu.io.jpeg import JpegParse
+    from gstbad.io.jpeg import JpegParse
     blob = (b"garbage!" + _fake_jpeg(640, 480)
             + _fake_jpeg(320, 240, ((2, 1), (1, 1), (1, 1)))
             + _fake_jpeg(64, 48, ((1, 1), (1, 1), (1, 1))))
@@ -378,7 +378,7 @@ def test_jpegparse_framing_and_headers():
 
 
 def test_jifmux_marker_rewrite():
-    from gstbad_tpu.io.jpeg import JpegParse, jif_mux
+    from gstbad.io.jpeg import JpegParse, jif_mux
     blob = _fake_jpeg(64, 48)
     out = jif_mux(blob, comment="test image", exif=b"\x01\x02")
     # still a valid parseable JPEG with the same image properties
@@ -394,7 +394,7 @@ def test_jifmux_marker_rewrite():
 def test_jpegparse_fill_bytes_before_eoi():
     """Regression: a fill 0xFF before EOI (legal padding) must not stall
     the scan."""
-    from gstbad_tpu.io.jpeg import JpegParse
+    from gstbad.io.jpeg import JpegParse
     blob = _fake_jpeg(32, 32)
     # inject a fill byte right before the EOI marker
     padded = blob[:-2] + b"\xff" + blob[-2:]
@@ -405,7 +405,7 @@ def test_jpegparse_fill_bytes_before_eoi():
 def test_timecodestamper_drop_frame():
     """SMPTE drop-frame at 30000/1001: frame numbers 0,1 skip at each
     minute except every tenth (gsttimecodestamper.c drop-frame)."""
-    from gstbad_tpu.elements.misc import (frames_to_tc,
+    from gstbad.elements.misc import (frames_to_tc,
                                           tc_frames_since_daily_jam)
     import jax.numpy as jnp
     # first frame of minute 1 is 00:01:00;02 in DF
@@ -453,9 +453,9 @@ def test_avwait_video_and_audio_pads():
 
 
 def test_avwait_modes():
-    from gstbad_tpu.core.frame import FrameBatch
-    from gstbad_tpu.core.pipeline import Pipeline
-    from gstbad_tpu.core.spec import MediaSpec
+    from gstbad.core.frame import FrameBatch
+    from gstbad.core.pipeline import Pipeline
+    from gstbad.core.spec import MediaSpec
     import jax.numpy as jnp
     from fractions import Fraction
 
@@ -537,12 +537,12 @@ def test_avwait_audio_sample_exact():
         == 1600 + 5 * 3200              # gate..end of the 10 blocks
 
 
-def test_tpu_launch_cli(capsys):
-    """tpu-launch (gst-launch-1.0 analog) drives a pipeline from its
+def test_gstbad_launch_cli(capsys):
+    """gstbad-launch (gst-launch-1.0 analog) drives a pipeline from its
     CLI surface."""
     import jax
     jax.config.update("jax_platforms", "cpu")
-    from gstbad_tpu.cli import launch_main
+    from gstbad.cli import launch_main
     rc = launch_main(["--cpu", "-n", "8", "-v",
                       "videotestsrc pattern=bars width=64 height=48 "
                       "format=BGRx ! solarize ! fakesink"])

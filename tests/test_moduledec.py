@@ -7,10 +7,10 @@ import struct
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.pipeline import Pipeline
-from gstbad_tpu.io import gme as gme_io
-from gstbad_tpu.io import openmpt as mpt_io
+import gstbad as gt
+from gstbad.core.pipeline import Pipeline
+from gstbad.io import gme as gme_io
+from gstbad.io import openmpt as mpt_io
 
 
 def make_vgm(seconds=1):

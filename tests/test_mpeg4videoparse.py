@@ -2,8 +2,8 @@
 transcription (tests/check/elements/mpeg4videoparse.c canned config +
 VOP)."""
 
-import gstbad_tpu as gt
-from gstbad_tpu.io import mpeg4video as m4
+import gstbad as gt
+from gstbad.io import mpeg4video as m4
 
 # mpeg4videoparse.c:47-60
 MPEG4_CONFIG = bytes([

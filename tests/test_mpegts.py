@@ -10,11 +10,11 @@ import struct
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.elements.mpegts import k90_to_ns, ns_to_90k
-from gstbad_tpu.io import mpegts as ts
-from gstbad_tpu.io import tsoracle
-from gstbad_tpu.io.typefind import find_type
+import gstbad as gt
+from gstbad.elements.mpegts import k90_to_ns, ns_to_90k
+from gstbad.io import mpegts as ts
+from gstbad.io import tsoracle
+from gstbad.io.typefind import find_type
 
 
 @pytest.fixture

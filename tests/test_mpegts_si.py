@@ -4,7 +4,7 @@ section byte vectors."""
 
 import pytest
 
-from gstbad_tpu.io import mpegts_si as si
+from gstbad.io import mpegts_si as si
 
 # the upstream packetize check vectors (mpegts.c:26-72)
 PAT_DATA = bytes([
@@ -503,7 +503,7 @@ def test_si_walk_on_muxed_stream():
     interleaved EIT/TDT/TOT/CAT/SDT sections — some spanning multiple
     TS packets — and read them back typed from TsDemux's section
     collection."""
-    from gstbad_tpu.io import mpegts as ts
+    from gstbad.io import mpegts as ts
 
     mux = ts.TsMux()
     st = mux.add_stream(0x1B)  # H.264

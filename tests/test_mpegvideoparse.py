@@ -6,8 +6,8 @@ import os
 
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.io import mpegvideo as mpv
+import gstbad as gt
+from gstbad.io import mpegvideo as mpv
 
 # mpegvideoparse.c:46-77 vectors
 MPEG2_SEQ = bytes([

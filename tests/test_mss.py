@@ -5,7 +5,7 @@ import pathlib
 
 import pytest
 
-from gstbad_tpu.io import isoff, mss
+from gstbad.io import isoff, mss
 
 DATA = pathlib.Path(__file__).parent / "data" / "isoff"
 

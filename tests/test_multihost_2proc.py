@@ -53,9 +53,9 @@ def test_two_process_distributed_feed_window(tmp_path):
     import jax
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
-    import gstbad_tpu as gt
-    from gstbad_tpu.core.frame import FrameBatch
-    from gstbad_tpu.core.spec import MediaSpec
+    import gstbad as gt
+    from gstbad.core.frame import FrameBatch
+    from gstbad.core.spec import MediaSpec
 
     H, W, B_LOCAL = 16, 128, 4
     frames = np.concatenate([

@@ -5,10 +5,10 @@ ffmpeg mux with REAL encoded essence -> our demux)."""
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.io import mxf
-from gstbad_tpu.io import tsoracle
-from gstbad_tpu.io.typefind import find_type
+import gstbad as gt
+from gstbad.io import mxf
+from gstbad.io import tsoracle
+from gstbad.io.typefind import find_type
 
 need_oracle = pytest.mark.skipif(not tsoracle.available(),
                                  reason="libavformat not available")

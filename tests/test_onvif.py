@@ -4,9 +4,9 @@ semantics: extension layout, C/E/D/T flags, one-buffer latency)."""
 
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.io.rtp import RtpPacket
-from gstbad_tpu.elements.onvif import (EXTENSION_ID, to_ntp,
+import gstbad as gt
+from gstbad.io.rtp import RtpPacket
+from gstbad.elements.onvif import (EXTENSION_ID, to_ntp,
                                        from_ntp_parts)
 
 NSEC = 1_000_000_000

@@ -6,8 +6,8 @@ import struct
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.io import opus as op
+import gstbad as gt
+from gstbad.io import opus as op
 
 need_libopus = pytest.mark.skipif(not op.libopus_available(),
                                   reason="libopus not available")

@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.frame import FrameBatch
-from gstbad_tpu.core.spec import MediaSpec
-from gstbad_tpu.parallel import make_mesh, shard_batch, pipeline_shardings
+import gstbad as gt
+from gstbad.core.frame import FrameBatch
+from gstbad.core.spec import MediaSpec
+from gstbad.parallel import make_mesh, shard_batch, pipeline_shardings
 
 
 @pytest.fixture
@@ -134,7 +134,7 @@ def test_sharded_audio_scan_elements(rng, mesh):
 def test_multihost_feed_window_single_process(rng, mesh):
     """feed_window degrades to device_put sharding in one process and
     produces the same results as shard_batch."""
-    from gstbad_tpu.parallel import feed_window
+    from gstbad.parallel import feed_window
     img = rng.integers(0, 256, (8, 32, 128, 4), dtype=np.uint8)
     spec = MediaSpec(kind="video", format="BGRx", width=128, height=32)
     pts = np.arange(8, dtype=np.int64) * 33_000_000

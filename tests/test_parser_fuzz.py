@@ -9,11 +9,11 @@ import os
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.io import asf, av1obu, gdp, h263, h264, h265nal
-from gstbad_tpu.io import kate as kate_io
-from gstbad_tpu.io import m3u8, mpegps, mpegts, mxf, dashmpd
-from gstbad_tpu.io import uvch264, vp9
+import gstbad as gt
+from gstbad.io import asf, av1obu, gdp, h263, h264, h265nal
+from gstbad.io import kate as kate_io
+from gstbad.io import m3u8, mpegps, mpegts, mxf, dashmpd
+from gstbad.io import uvch264, vp9
 
 DATA = os.path.dirname(__file__) + "/data"
 
@@ -213,7 +213,7 @@ def test_fuzz_mss_manifest(rng):
     from tests.test_mss import MANIFEST
     for blob in _mutations(rng, MANIFEST.encode(), n=20):
         try:
-            m = __import__("gstbad_tpu.io.mss",
+            m = __import__("gstbad.io.mss",
                            fromlist=["MssManifest"])
             man = m.MssManifest(blob)
             for s in man.streams:
@@ -225,7 +225,7 @@ def test_fuzz_mss_manifest(rng):
 
 
 def test_fuzz_isoff(rng):
-    from gstbad_tpu.io import isoff, mss
+    from gstbad.io import isoff, mss
     moof = open(os.path.join(DATA, "isoff", "moof1.bin"), "rb").read()
     frag = open(os.path.join(DATA, "isoff",
                              "Fragments_audio.bin"), "rb").read()
@@ -243,7 +243,7 @@ def test_fuzz_isoff(rng):
 
 
 def test_fuzz_vc1(rng):
-    from gstbad_tpu.io import vc1
+    from gstbad.io import vc1
     layer = vc1.make_sequence_layer(
         vc1.PROFILE_MAIN, vc1.StructC(profile=vc1.PROFILE_MAIN),
         320, 240, 2, 25, 1)
@@ -258,8 +258,8 @@ def test_fuzz_vc1(rng):
 
 
 def test_fuzz_opus(rng):
-    from gstbad_tpu.io import opus
-    import gstbad_tpu as gt
+    from gstbad.io import opus
+    import gstbad as gt
     pkt = bytes([16 << 3 | 3, 4]) + b"x" * 64
     for blob in _mutations(rng, pkt, n=25):
         try:

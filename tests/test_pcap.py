@@ -7,8 +7,8 @@ import struct
 
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.elements.pcap import PcapError
+import gstbad as gt
+from gstbad.elements.pcap import PcapError
 
 # pcapparse.c:15-18 (little-endian v2.4, linktype 1 = Ethernet)
 PCAP_HEADER = bytes([

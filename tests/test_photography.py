@@ -6,7 +6,7 @@ property (the adjust stage acts on frames, not dead config)."""
 import numpy as np
 import pytest
 
-from gstbad_tpu.session.camera import (
+from gstbad.session.camera import (
     CAPS_EV_COMP, CAPS_FLASH, CAPS_ISO_SPEED, CAPS_SCENE, CAPS_TONE,
     CAPS_WB_MODE, CAPS_ZOOM, Camera, FOCUS_STATUS_SUCCESS, MODE_IMAGE)
 
@@ -170,7 +170,7 @@ def test_effects_reach_captures(tmp_path):
     """The adjust stage sits in the source path, so captures see it."""
     import os
     os.chdir(tmp_path)
-    from gstbad_tpu.io import pnm
+    from gstbad.io import pnm
     cam = Camera(source="videotestsrc pattern=gradient width=32 height=24 "
                  "format=AYUV", mode=MODE_IMAGE, window=2)
     loc0 = cam.start_capture()

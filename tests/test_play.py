@@ -9,7 +9,7 @@ import time
 import numpy as np
 import pytest
 
-from gstbad_tpu.session import (Play, PlayState, Player, QueuedDispatcher,
+from gstbad.session import (Play, PlayState, Player, QueuedDispatcher,
                                 SignalAdapter)
 
 AV_URI = ("testbin://video,width=32,height=32,format=GRAY8"

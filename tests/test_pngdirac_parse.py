@@ -8,8 +8,8 @@ import zlib
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.io import dirac
+import gstbad as gt
+from gstbad.io import dirac
 
 
 # ---------------------------------------------------------------- png

@@ -12,12 +12,12 @@ import pytest
 
 cv2 = pytest.importorskip("cv2")
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.frame import FrameBatch
-from gstbad_tpu.core.pipeline import Pipeline
-from gstbad_tpu.core.spec import MediaSpec
-from gstbad_tpu.golden import qroverlay as golden
-from gstbad_tpu.io import qr
+import gstbad as gt
+from gstbad.core.frame import FrameBatch
+from gstbad.core.pipeline import Pipeline
+from gstbad.core.spec import MediaSpec
+from gstbad.golden import qroverlay as golden
+from gstbad.io import qr
 
 DET = cv2.QRCodeDetector()
 
@@ -134,7 +134,7 @@ def test_golden_position_rounding():
 
 def test_qroverlay_element_roundtrip():
     W, H = 640, 480
-    el = gt.make("qroverlay", data="tpu qroverlay test",
+    el = gt.make("qroverlay", data="gstbad qroverlay test",
                  **{"pixel-size": 4.0})
     p = Pipeline([el])
     p.negotiate(MediaSpec(kind="video", format="BGRx", width=W, height=H,
@@ -143,7 +143,7 @@ def test_qroverlay_element_roundtrip():
     out = np.asarray(p.run(inputs=FrameBatch.make(jnp.asarray(img)))[0]
                      .data)
     s, _, _ = DET.detectAndDecode(out[0][..., :3])
-    assert s == "tpu qroverlay test"
+    assert s == "gstbad qroverlay test"
     # both frames identical (one static overlay)
     np.testing.assert_array_equal(out[0], out[1])
     # empty data -> passthrough (get_content NULL draws nothing)

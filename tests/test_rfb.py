@@ -9,8 +9,8 @@ import struct
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.io import rfb
+import gstbad as gt
+from gstbad.io import rfb
 
 
 class MockServer:

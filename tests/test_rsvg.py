@@ -7,11 +7,11 @@ gstrsvgoverlay.c applied-value walk, and rsvgdec splits documents at
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.harness import Harness
-from gstbad_tpu.core.pipeline import Pipeline
-from gstbad_tpu.core.spec import MediaSpec
-from gstbad_tpu.io import rsvg as iorsvg
+import gstbad as gt
+from gstbad.core.harness import Harness
+from gstbad.core.pipeline import Pipeline
+from gstbad.core.spec import MediaSpec
+from gstbad.io import rsvg as iorsvg
 
 pytestmark = pytest.mark.skipif(not iorsvg.available(),
                                 reason="librsvg/cairo not present")
@@ -136,7 +136,7 @@ def test_overlay_data_pad_feed():
     p = Pipeline([el])
     p.negotiate(_spec())
     import jax.numpy as jnp
-    from gstbad_tpu.core.frame import FrameBatch
+    from gstbad.core.frame import FrameBatch
     outs = p.run(inputs=FrameBatch.make(jnp.asarray(frames)))
     np.testing.assert_array_equal(np.asarray(outs[0].data),
                                   _cairo_over(frames, SVG))
@@ -175,7 +175,7 @@ def test_rsvgdec_later_docs_scale_to_first():
 
 def test_faceoverlay_svg_location(tmp_path):
     """faceoverlay renders SVG overlay files through librsvg."""
-    d = np.load("gstbad_tpu/data/face_fixture.npz")
+    d = np.load("gstbad/data/face_fixture.npz")
     g = d["frame"]
     img = np.repeat(g[..., None], 3, -1)
     rgba = np.concatenate([img, np.full(g.shape + (1,), 255, np.uint8)],

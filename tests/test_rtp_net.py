@@ -8,11 +8,11 @@ import time
 import numpy as np
 import pytest
 
-from gstbad_tpu.core.frame import FrameBatch
-from gstbad_tpu.core.registry import make
-from gstbad_tpu.core.spec import AudioFormat, MediaSpec, VideoFormat
-from gstbad_tpu.io import rtpnet
-from gstbad_tpu.io.rtp import RtpPacket
+from gstbad.core.frame import FrameBatch
+from gstbad.core.registry import make
+from gstbad.core.spec import AudioFormat, MediaSpec, VideoFormat
+from gstbad.io import rtpnet
+from gstbad.io.rtp import RtpPacket
 
 
 @pytest.fixture

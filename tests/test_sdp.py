@@ -5,14 +5,14 @@ session (gstsdpdemux.c:371-458 stream setup)."""
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.io import rtp as rtp_io
-from gstbad_tpu.io import sdp as sdp_io
+import gstbad as gt
+from gstbad.io import rtp as rtp_io
+from gstbad.io import sdp as sdp_io
 
 
 SDP = """v=0
 o=- 123 1 IN IP4 10.0.0.1
-s=TPU session
+s=GstBad session
 c=IN IP4 224.2.1.1/127
 t=0 0
 a=recvonly
@@ -28,7 +28,7 @@ a=rtpmap:97 opus/48000/2
 
 def test_sdp_parse():
     msg = sdp_io.SdpMessage.parse(SDP)
-    assert msg.session_name == "TPU session"
+    assert msg.session_name == "GstBad session"
     assert msg.connection.address == "224.2.1.1"
     assert msg.connection.ttl == 127
     assert len(msg.medias) == 3

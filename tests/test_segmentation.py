@@ -10,12 +10,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.frame import FrameBatch
-from gstbad_tpu.core.pipeline import Pipeline
-from gstbad_tpu.core.spec import MediaSpec
-from gstbad_tpu.golden import segmentation as G
-from gstbad_tpu.ops import segmentation as S
+import gstbad as gt
+from gstbad.core.frame import FrameBatch
+from gstbad.core.pipeline import Pipeline
+from gstbad.core.spec import MediaSpec
+from gstbad.golden import segmentation as G
+from gstbad.ops import segmentation as S
 
 cv2 = pytest.importorskip("cv2")
 

@@ -5,10 +5,10 @@ import time
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.spec import MediaSpec
-from gstbad_tpu.io import y4m
-from gstbad_tpu.session import Play, PlayState, Transcoder
+import gstbad as gt
+from gstbad.core.spec import MediaSpec
+from gstbad.io import y4m
+from gstbad.session import Play, PlayState, Transcoder
 
 
 def test_play_state_machine():
@@ -58,7 +58,7 @@ def test_transcoder_roundtrip(tmp_path, rng):
     assert n == 6
     spec2, planes2 = y4m.read_y4m(str(dst))
     assert planes2["y"].shape == (6, 16, 32)
-    from gstbad_tpu.golden.videofilters import zebrastripe_y
+    from gstbad.golden.videofilters import zebrastripe_y
     for i in range(6):
         np.testing.assert_array_equal(planes2["y"][i],
                                       zebrastripe_y(planes["y"][i], 70, i))
@@ -76,7 +76,7 @@ def test_checkpoint_resume(tmp_path, rng):
                               width=16, height=16))
         return p
 
-    from gstbad_tpu.core.frame import FrameBatch
+    from gstbad.core.frame import FrameBatch
     import jax.numpy as jnp
 
     def feed(p, arr):
@@ -101,8 +101,8 @@ def test_checkpoint_resume(tmp_path, rng):
 
 
 def test_camera_image_and_video_capture(tmp_path):
-    from gstbad_tpu.session.camera import Camera, MODE_VIDEO
-    from gstbad_tpu.io import pnm, y4m
+    from gstbad.session.camera import Camera, MODE_VIDEO
+    from gstbad.io import pnm, y4m
     import os
     os.chdir(tmp_path)
     cam = Camera(source="videotestsrc pattern=gradient width=64 height=48 "
@@ -128,8 +128,8 @@ def test_camera_image_and_video_capture(tmp_path):
 
 
 def test_camera_image_capture_planar(tmp_path):
-    from gstbad_tpu.session.camera import Camera
-    from gstbad_tpu.io import pnm
+    from gstbad.session.camera import Camera
+    from gstbad.io import pnm
     import os
     os.chdir(tmp_path)
     cam = Camera(source="videotestsrc pattern=gradient width=64 height=48 "
@@ -142,10 +142,10 @@ def test_camera_image_capture_planar(tmp_path):
 def test_transcoder_pnm_profile(tmp_path, rng):
     """Encoding-profile analog: profile='pnm' writes a P6 sequence."""
     import numpy as np
-    from gstbad_tpu.io import y4m
-    from gstbad_tpu.io.pnm import read_pnm
-    from gstbad_tpu.core.spec import MediaSpec
-    from gstbad_tpu.session.transcoder import Transcoder
+    from gstbad.io import y4m
+    from gstbad.io.pnm import read_pnm
+    from gstbad.core.spec import MediaSpec
+    from gstbad.session.transcoder import Transcoder
 
     src = str(tmp_path / "in.y4m")
     spec = MediaSpec(kind="video", format="I420", width=32, height=16)
@@ -165,10 +165,10 @@ def test_transcoder_pnm_profile(tmp_path, rng):
 def test_transcoder_gdp_profile_roundtrip(tmp_path, rng):
     """profile='gdp' writes GDP packets that gdpfilesrc can replay."""
     import numpy as np
-    import gstbad_tpu as gt
-    from gstbad_tpu.io import y4m
-    from gstbad_tpu.core.spec import MediaSpec
-    from gstbad_tpu.session.transcoder import Transcoder
+    import gstbad as gt
+    from gstbad.io import y4m
+    from gstbad.core.spec import MediaSpec
+    from gstbad.session.transcoder import Transcoder
 
     src = str(tmp_path / "in.y4m")
     spec = MediaSpec(kind="video", format="I420", width=32, height=16)
@@ -189,7 +189,7 @@ def test_transcoder_gdp_profile_roundtrip(tmp_path, rng):
 
 
 def test_transcoder_bad_profile_rejected(tmp_path):
-    from gstbad_tpu.session.transcoder import Transcoder
+    from gstbad.session.transcoder import Transcoder
     import pytest as _pytest
     with _pytest.raises(ValueError):
         Transcoder("a.y4m", "b.mkv", profile="matroska")
@@ -200,7 +200,7 @@ def test_transcoder_bad_profile_rejected(tmp_path):
 def test_camera_viewfinder_and_previews(tmp_path):
     """Viewfinder branch + post-previews/preview-caps
     (gstcamerabin2.c:33-76,713-756)."""
-    from gstbad_tpu.session.camera import Camera, MODE_VIDEO
+    from gstbad.session.camera import Camera, MODE_VIDEO
 
     seen = []
     cam = Camera(source="videotestsrc pattern=gradient width=64 height=48 "
@@ -236,12 +236,12 @@ def test_camera_viewfinder_and_previews(tmp_path):
 def test_transcoder_hevc_profile_lossless(tmp_path, rng):
     """y4m -> x265enc (real libx265) -> .hevc; decodes back bit-exact
     through libde265dec."""
-    from gstbad_tpu.io import h265
+    from gstbad.io import h265
     if not h265.available():
         import pytest
         pytest.skip("libx265/libde265 not present")
-    import gstbad_tpu as gt
-    from gstbad_tpu.core.pipeline import Pipeline
+    import gstbad as gt
+    from gstbad.core.pipeline import Pipeline
     spec = MediaSpec(kind="video", format="I420", width=64, height=48)
     yy, xx = np.mgrid[0:48, 0:64]
     planes = {"y": np.stack([((xx * 3 + yy + i * 7) % 256)
@@ -266,11 +266,11 @@ def test_transcoder_hevc_profile_lossless(tmp_path, rng):
 def test_transcoder_av1_ivf_profile(tmp_path):
     """y4m -> av1enc (real libaom) -> IVF; the repo's own ivfparse
     reads it back and av1dec decodes every frame."""
-    from gstbad_tpu.io import av1 as av1io
+    from gstbad.io import av1 as av1io
     if not av1io.available():
         import pytest
         pytest.skip("libaom not present")
-    from gstbad_tpu.io import ivf
+    from gstbad.io import ivf
     spec = MediaSpec(kind="video", format="I420", width=64, height=48)
     yy, xx = np.mgrid[0:48, 0:64]
     planes = {"y": np.stack([((xx * 2 + yy * 3 + i * 11) % 256)

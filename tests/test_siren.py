@@ -6,7 +6,7 @@ import hashlib
 import numpy as np
 import pytest
 
-from gstbad_tpu.io import siren
+from gstbad.io import siren
 
 
 def _sine(n_frames, freq=440.0, amp=8000):
@@ -95,7 +95,7 @@ def test_bitstream_regression_digest():
 
 
 def test_elements_roundtrip():
-    from gstbad_tpu.core.registry import make
+    from gstbad.core.registry import make
 
     sig = _sine(6)
     enc = make("sirenenc")

@@ -6,11 +6,11 @@ spec (independent of the parser)."""
 import numpy as np
 import jax.numpy as jnp
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.frame import FrameBatch
-from gstbad_tpu.core.pipeline import Pipeline
-from gstbad_tpu.core.spec import MediaSpec
-from gstbad_tpu.io import spu as spuio
+import gstbad as gt
+from gstbad.core.frame import FrameBatch
+from gstbad.core.pipeline import Pipeline
+from gstbad.core.spec import MediaSpec
+from gstbad.io import spu as spuio
 
 
 def _nibbles_to_bytes(nibs):

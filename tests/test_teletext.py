@@ -5,9 +5,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.pipeline import Pipeline
-from gstbad_tpu.io import teletext as tt
+import gstbad as gt
+from gstbad.core.pipeline import Pipeline
+from gstbad.io import teletext as tt
 
 
 def _unit(line42, uid=0x02, line_no=7, field=0):

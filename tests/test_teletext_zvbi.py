@@ -6,8 +6,8 @@ library gstteletextdec.c wraps.  Both decoders consume the same
 import numpy as np
 import pytest
 
-from gstbad_tpu.io import teletext as tt
-from gstbad_tpu.io import zvbi
+from gstbad.io import teletext as tt
+from gstbad.io import zvbi
 
 pytestmark = pytest.mark.skipif(not zvbi.available(),
                                 reason="libzvbi not present")

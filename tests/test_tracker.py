@@ -5,11 +5,11 @@ import fractions
 import numpy as np
 import jax.numpy as jnp
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.frame import FrameBatch
-from gstbad_tpu.core.pipeline import Pipeline
-from gstbad_tpu.core.spec import MediaSpec
-from gstbad_tpu.ops import mosse
+import gstbad as gt
+from gstbad.core.frame import FrameBatch
+from gstbad.core.pipeline import Pipeline
+from gstbad.core.spec import MediaSpec
+from gstbad.ops import mosse
 
 H, W = 96, 128
 

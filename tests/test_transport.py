@@ -7,10 +7,10 @@ import os
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.frame import FrameBatch
-from gstbad_tpu.core.spec import MediaSpec, VideoFormat
-from gstbad_tpu.io import gdp, y4m
+import gstbad as gt
+from gstbad.core.frame import FrameBatch
+from gstbad.core.spec import MediaSpec, VideoFormat
+from gstbad.io import gdp, y4m
 
 
 def _video_batch(rng, n=3, h=16, w=24):
@@ -53,7 +53,7 @@ def test_appsrc_pipeline(rng):
     src.push_frames(frames)
     outs = p.run(window=2)
     got = np.concatenate([np.asarray(o.data) for o in outs])
-    from gstbad_tpu.golden.gaudieffects import burn
+    from gstbad.golden.gaudieffects import burn
     assert got.shape[0] == 5  # padding frames masked out
     for i in range(5):
         np.testing.assert_array_equal(got[i], burn(frames[i]))
@@ -70,14 +70,14 @@ def test_intervideo_bridge(rng):
                          "format=BGRx ! dodge ! fakesink")
     outs = p2.run(window=2)
     got = np.concatenate([np.asarray(o.data) for o in outs])
-    from gstbad_tpu.golden.gaudieffects import dodge
+    from gstbad.golden.gaudieffects import dodge
     assert got.shape[0] == 4
     for i in range(4):
         np.testing.assert_array_equal(got[i], dodge(frames[i]))
 
 
 def test_shmring_roundtrip(rng):
-    from gstbad_tpu.io.shm import ShmRing
+    from gstbad.io.shm import ShmRing
     ring = ShmRing.create("gstbad-test-ring", 1 << 20, 4)
     try:
         other = ShmRing.open("gstbad-test-ring")
@@ -109,7 +109,7 @@ def test_shm_pipeline_cross_process_style(rng):
                          " ! burn ! fakesink")
     outs = p2.run(window=2)
     got = np.concatenate([np.asarray(o.data) for o in outs])
-    from gstbad_tpu.golden.gaudieffects import burn
+    from gstbad.golden.gaudieffects import burn
     assert got.shape[0] == 4
     for i in range(4):
         np.testing.assert_array_equal(got[i], burn(frames[i]))
@@ -173,7 +173,7 @@ def test_watchdog():
 
 
 def test_pnm_roundtrip(tmp_path, rng):
-    from gstbad_tpu.io import pnm
+    from gstbad.io import pnm
     img = rng.integers(0, 256, (16, 24, 3), dtype=np.uint8)
     pnm.write_pnm(tmp_path / "t.ppm", img)
     spec, back = pnm.read_pnm(str(tmp_path / "t.ppm"))
@@ -201,7 +201,7 @@ def test_gdp_file_transport(tmp_path, rng):
     assert spec.width == 24 and spec.format == "BGRx"
     outs = p2.run(window=2)
     got = np.concatenate([np.asarray(o.data) for o in outs])
-    from gstbad_tpu.golden.gaudieffects import solarize
+    from gstbad.golden.gaudieffects import solarize
     assert got.shape[0] == 5
     for i in range(5):
         np.testing.assert_array_equal(got[i], solarize(frames[i]))
@@ -282,7 +282,7 @@ def test_ipcpipeline_state_query_message_forwarding(rng):
     master forwards state changes + queries, slave acks and answers;
     slave messages surface on the master side."""
     import threading
-    from gstbad_tpu.io.ipcpipeline import (IpcMaster, IpcSlave,
+    from gstbad.io.ipcpipeline import (IpcMaster, IpcSlave,
                                            STATE_CHANGE_SUCCESS)
 
     master = IpcMaster("gstbad-test-ipc", slot_size=1 << 20, n_slots=4)
@@ -319,8 +319,8 @@ def test_ipcpipeline_state_query_message_forwarding(rng):
     assert master.query({"type": "duration"}) == {"result": False}
 
     # buffers flow after the control plane
-    from gstbad_tpu.core.frame import FrameBatch
-    from gstbad_tpu.core.spec import MediaSpec, VideoFormat
+    from gstbad.core.frame import FrameBatch
+    from gstbad.core.spec import MediaSpec, VideoFormat
     import jax.numpy as jnp
     frames = rng.integers(0, 256, (3, 8, 8, 4), np.uint8)
     spec = MediaSpec(kind="video", format=VideoFormat.BGRx, width=8, height=8)
@@ -355,14 +355,14 @@ def test_ipcpipeline_elements_end_to_end(rng):
         "! solarize ! fakesink")
     outs = p2.run(window=2)
     got = np.concatenate([np.asarray(o.data) for o in outs])
-    from gstbad_tpu.golden.gaudieffects import solarize
+    from gstbad.golden.gaudieffects import solarize
     assert got.shape[0] == 4
     for i in range(4):
         np.testing.assert_array_equal(got[i], solarize(frames[i]))
 
 
 def test_ivf_roundtrip(tmp_path, rng):
-    from gstbad_tpu.io.ivf import IvfParse, write_ivf
+    from gstbad.io.ivf import IvfParse, write_ivf
     frames = [(i * 3000, rng.integers(0, 256, (50 + i,), np.uint8)
                .tobytes()) for i in range(5)]
     path = tmp_path / "t.ivf"
@@ -382,7 +382,7 @@ def test_ivf_roundtrip(tmp_path, rng):
 
 
 def test_subtitle_encoders():
-    from gstbad_tpu.io.subtitles import SrtEnc, WebvttEnc
+    from gstbad.io.subtitles import SrtEnc, WebvttEnc
     srt = SrtEnc()
     out = srt.encode("hello", 0) + srt.encode("world", 61_500 * 10**6,
                                               2 * 10**9)
@@ -437,7 +437,7 @@ def test_shm_pipeline_two_real_processes(rng, tmp_path):
     child_code = r"""
 import jax
 jax.config.update("jax_platforms", "cpu")
-import gstbad_tpu as gt
+import gstbad as gt
 
 p = gt.parse_launch(
     "shmsrc socket-path=RING_IN timeout-ms=10000 "
@@ -487,7 +487,7 @@ print("child done", flush=True)
         if child.poll() is None:
             child.kill()
 
-    from gstbad_tpu.golden.gaudieffects import burn
+    from gstbad.golden.gaudieffects import burn
     assert got.shape[0] == 6
     for i in range(6):
         np.testing.assert_array_equal(got[i], burn(frames[i]))

@@ -13,15 +13,15 @@ import math
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.harness import Harness
-from gstbad_tpu.core.spec import MediaSpec
-from gstbad_tpu.io import pangocairo, ttml
+import gstbad as gt
+from gstbad.core.harness import Harness
+from gstbad.core.spec import MediaSpec
+from gstbad.io import pangocairo, ttml
 
 pytestmark = pytest.mark.skipif(not pangocairo.available(),
                                 reason="pango/cairo not present")
 
-from gstbad_tpu.io import ttml_pango  # noqa: E402
+from gstbad.io import ttml_pango  # noqa: E402
 
 
 def _doc(body, style_attrs="", region_attrs=""):

@@ -6,9 +6,9 @@ import struct
 import numpy as np
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.pipeline import Pipeline
-from gstbad_tpu.io import typefind
+import gstbad as gt
+from gstbad.core.pipeline import Pipeline
+from gstbad.io import typefind
 
 
 def test_magics():
@@ -36,7 +36,7 @@ def test_magics():
 
 
 def test_make_source_webp():
-    from gstbad_tpu.io import webp
+    from gstbad.io import webp
     if not webp.available():
         pytest.skip("no libwebp")
     img = np.zeros((24, 32, 3), np.uint8)
@@ -52,7 +52,7 @@ def test_make_source_webp():
 
 
 def test_make_source_h265_and_play(tmp_path):
-    from gstbad_tpu.io import h265
+    from gstbad.io import h265
     if not h265.available():
         pytest.skip("no libx265/libde265")
     enc = h265.H265Encoder(64, 48, lossless=True,
@@ -71,16 +71,16 @@ def test_make_source_h265_and_play(tmp_path):
     # Play.from_uri picks it up from a file
     p = tmp_path / "clip.h265"
     p.write_bytes(stream)
-    from gstbad_tpu.session import Play
+    from gstbad.session import Play
     player = Play.from_uri(str(p), realtime=False)
     assert player is not None
 
 
 def test_make_source_av1_ivf():
-    from gstbad_tpu.io import av1
+    from gstbad.io import av1
     if not av1.available():
         pytest.skip("no libaom")
-    from gstbad_tpu.io.ivf import write_ivf
+    from gstbad.io.ivf import write_ivf
     import tempfile, os
     enc = av1.AV1Encoder(64, 48, target_bitrate_kbps=500, cpu_used=8)
     y = np.full((48, 64), 100, np.uint8)

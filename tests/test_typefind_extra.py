@@ -4,9 +4,9 @@ import struct
 
 import pytest
 
-from gstbad_tpu.io import vc1
-from gstbad_tpu.io.opus import build_id_header
-from gstbad_tpu.io.typefind import find_type
+from gstbad.io import vc1
+from gstbad.io.opus import build_id_header
+from gstbad.io.typefind import find_type
 
 
 def test_typefind_opus():

@@ -5,8 +5,8 @@ import os
 
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.io import uvch264
+import gstbad as gt
+from gstbad.io import uvch264
 
 DATA = os.path.join(os.path.dirname(__file__), "data", "uvch264")
 

@@ -9,7 +9,7 @@ import os
 
 import pytest
 
-from gstbad_tpu.utils.validate import (parse_validatetest,
+from gstbad.utils.validate import (parse_validatetest,
                                        run_validatetest)
 
 HERE = os.path.join(os.path.dirname(__file__), "validate")
@@ -55,7 +55,7 @@ def test_validate_detects_flow_divergence(tmp_path):
 
 def test_validate_expect_message_failure():
     """expect-message on a never-posted message reports a failure."""
-    from gstbad_tpu.utils.validate import ValidateTest, FlowConfig
+    from gstbad.utils.validate import ValidateTest, FlowConfig
     t = ValidateTest(
         launch="videotestsrc width=32 height=32 format=GRAY8 ! fakesink",
         flows=[],

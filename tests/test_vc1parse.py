@@ -3,8 +3,8 @@
 
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.io import vc1
+import gstbad as gt
+from gstbad.io import vc1
 
 
 class BitWriter:

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from gstbad_tpu.core.harness import Harness
-from gstbad_tpu.core.spec import MediaSpec, VideoFormat
-from gstbad_tpu.golden import videofilters as golden
+from gstbad.core.harness import Harness
+from gstbad.core.spec import MediaSpec, VideoFormat
+from gstbad.golden import videofilters as golden
 
 
 def _gray_spec(w, h):
@@ -104,7 +104,7 @@ def test_videoanalyse_matches_golden(rng):
 
 
 def test_simplevideomark_roundtrip(rng):
-    import gstbad_tpu as gt
+    import gstbad as gt
     p = gt.parse_launch(
         "videotestsrc pattern=gradient width=64 height=48 format=GRAY8 "
         "! simplevideomark pattern-data=13 "
@@ -117,8 +117,8 @@ def test_simplevideomark_roundtrip(rng):
 
 
 def test_smooth_chroma(rng):
-    import gstbad_tpu as gt
-    from gstbad_tpu.core.frame import FrameBatch
+    import gstbad as gt
+    from gstbad.core.frame import FrameBatch
     import jax.numpy as jnp
     data = {"y": rng.integers(0, 256, (1, 16, 16), dtype=np.uint8),
             "u": rng.integers(0, 256, (1, 8, 8), dtype=np.uint8),
@@ -132,7 +132,7 @@ def test_smooth_chroma(rng):
 
 
 def test_alphacombine(rng):
-    import gstbad_tpu as gt
+    import gstbad as gt
     p = gt.parse_launch(
         "videotestsrc pattern=bars width=16 height=16 format=I420 name=v "
         "! comb. "
@@ -147,7 +147,7 @@ def test_alphacombine(rng):
 
 
 def test_suboverlay(rng):
-    import gstbad_tpu as gt
+    import gstbad as gt
     p = gt.parse_launch(
         "videotestsrc pattern=black width=16 height=16 format=AYUV name=v "
         "! ovl. "

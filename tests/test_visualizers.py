@@ -5,11 +5,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.frame import FrameBatch
-from gstbad_tpu.core.pipeline import Pipeline
-from gstbad_tpu.core.spec import AudioFormat, MediaSpec
-from gstbad_tpu.golden import visualizers as gv
+import gstbad as gt
+from gstbad.core.frame import FrameBatch
+from gstbad.core.pipeline import Pipeline
+from gstbad.core.spec import AudioFormat, MediaSpec
+from gstbad.golden import visualizers as gv
 
 W, H, S, B = 64, 32, 128, 2
 
@@ -124,7 +124,7 @@ def test_shader_none_and_moves(rng):
 
 # -- spectrascope / synaescope (gst_fft_s16 model + exact renders) ----------
 
-from gstbad_tpu.golden import ffts16 as gf
+from gstbad.golden import ffts16 as gf
 
 
 def test_ffts16_model_properties():
@@ -144,7 +144,7 @@ def test_ffts16_model_properties():
     assert mags.argmax() == 8
     assert abs(mags[8] - 16384 / 2) / (16384 / 2) < 0.01
     # device model matches golden bit-for-bit on CPU
-    from gstbad_tpu.ops import ffts16 as df
+    from gstbad.ops import ffts16 as df
     r, i = df.fft_s16(jnp.asarray(tone[None].astype(np.int32)))
     np.testing.assert_array_equal(np.asarray(r)[0], f.real)
     np.testing.assert_array_equal(np.asarray(i)[0], f.imag)

@@ -7,9 +7,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.pipeline import Pipeline
-from gstbad_tpu.io import vmnc
+import gstbad as gt
+from gstbad.core.pipeline import Pipeline
+from gstbad.io import vmnc
 
 
 def _rect(x, y, w, h, rtype, body=b""):

@@ -6,7 +6,7 @@ import pathlib
 
 import pytest
 
-from gstbad_tpu.io import vp8
+from gstbad.io import vp8
 
 DATA = pathlib.Path(__file__).parent / "data"
 FRAME0 = (DATA / "vp8_frame_data_0.bin").read_bytes()

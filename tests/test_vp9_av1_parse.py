@@ -7,14 +7,14 @@ import os
 
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.io import av1obu as av1
-from gstbad_tpu.io import vp9
+import gstbad as gt
+from gstbad.io import av1obu as av1
+from gstbad.io import vp9
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
 try:
-    from gstbad_tpu.io import av1 as _aom
+    from gstbad.io import av1 as _aom
     _HAVE_AOM = _aom.available()
 except Exception:
     _HAVE_AOM = False
@@ -203,7 +203,7 @@ def test_av1_frame_header_real_aom_nonuniform_tiles():
     (gstav1parser.c:2296-2338 non-uniform tile_info)."""
     import ctypes
     import numpy as np
-    from gstbad_tpu.io import av1 as aom
+    from gstbad.io import av1 as aom
 
     tw = (ctypes.c_int * 64)()
     tw[0], tw[1] = 5, 3          # superblock widths at 512px = 8 sbs

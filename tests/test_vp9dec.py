@@ -1,4 +1,4 @@
-"""VP9 stateful parser + decoder base layer (gstbad_tpu/codecs/vp9.py
+"""VP9 stateful parser + decoder base layer (gstbad/codecs/vp9.py
 vs gst-libs/gst/codecs/gstvp9statefulparser.c + gstvp9decoder.c).
 
 Real streams come from libvpx (the library VP9 is defined against);
@@ -10,12 +10,12 @@ hand-built headers.
 
 import pytest
 
-from gstbad_tpu.codecs import vp9 as cvp9
-from gstbad_tpu.io import vp9 as iovp9
+from gstbad.codecs import vp9 as cvp9
+from gstbad.io import vp9 as iovp9
 
 
 def _oracle():
-    from gstbad_tpu.io import codecoracle
+    from gstbad.io import codecoracle
     return codecoracle
 
 

@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.pipeline import Pipeline, parse_launch
-from gstbad_tpu.io import webp
+import gstbad as gt
+from gstbad.core.pipeline import Pipeline, parse_launch
+from gstbad.io import webp
 
 pytestmark = pytest.mark.skipif(not webp.available(),
                                 reason="libwebp not present")

@@ -7,10 +7,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.frame import FrameBatch
-from gstbad_tpu.core.spec import MediaSpec, VideoFormat
-from gstbad_tpu.golden import videofilters as g_vf
+import gstbad as gt
+from gstbad.core.frame import FrameBatch
+from gstbad.core.spec import MediaSpec, VideoFormat
+from gstbad.golden import videofilters as g_vf
 
 ZEBRA_FORMATS = list(VideoFormat.YUV_WITH_LUMA)  # the reference caps list
 

@@ -17,10 +17,10 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-from gstbad_tpu.core.element import Property, {base_cls}
-from gstbad_tpu.core.frame import FrameBatch
-from gstbad_tpu.core.registry import register
-from gstbad_tpu.core.spec import {fmt_cls}, MediaSpec
+from gstbad.core.element import Property, {base_cls}
+from gstbad.core.frame import FrameBatch
+from gstbad.core.registry import register
+from gstbad.core.spec import {fmt_cls}, MediaSpec
 
 
 @register
@@ -44,8 +44,8 @@ TEST_TPL = '''\
 
 import numpy as np
 
-from gstbad_tpu.core.harness import Harness
-from gstbad_tpu.core.spec import MediaSpec
+from gstbad.core.harness import Harness
+from gstbad.core.spec import MediaSpec
 
 
 def test_{pyname}_matches_golden(rng):
@@ -59,11 +59,11 @@ def test_{pyname}_matches_golden(rng):
 
 BASES = {
     "videofilter": ("VideoFilter", "VideoFormat", "VideoFormat.AYUV",
-                    "gstbad_tpu/elements/video"),
+                    "gstbad/elements/video"),
     "audiofilter": ("AudioFilter", "AudioFormat", "AudioFormat.F32",
-                    "gstbad_tpu/elements/audio"),
+                    "gstbad/elements/audio"),
     "element": ("Element", "VideoFormat", "VideoFormat.AYUV",
-                "gstbad_tpu/elements"),
+                "gstbad/elements"),
 }
 
 
@@ -93,7 +93,7 @@ def main():
         f.write(f"from {pkg.replace(os.sep, '.')} import {pyname}"
                 "  # noqa: F401\n")
     print(f"wrote {el_path}, {test_path}; registered in {init}.")
-    print("Next: transcribe the reference math into gstbad_tpu/golden/ "
+    print("Next: transcribe the reference math into gstbad/golden/ "
           "with file:line citations, then make the test bit-exact.")
 
 

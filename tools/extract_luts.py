@@ -12,7 +12,7 @@ import re
 import sys
 
 SRC = "/root/reference/gst/coloreffects/gstcoloreffects.c"
-OUT = "gstbad_tpu/elements/video/_coloreffects_tables.py"
+OUT = "gstbad/elements/video/_coloreffects_tables.py"
 
 TABLES = ["sepia_table", "heat_table", "xray_table", "xpro_table",
           "yellowblue_table"]

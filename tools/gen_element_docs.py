@@ -4,35 +4,36 @@
 import sys
 import os
 import sys
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-import gstbad_tpu as gt
-from gstbad_tpu.core.registry import get_class
+import gstbad as gt
+from gstbad.core.registry import get_class
 
 
 def _register_dynamic_families():
     """The plugin-host families (LADSPA/frei0r/LV2) register from
     their fixture bundles so the reference documents them too."""
     try:
-        from gstbad_tpu.io import ladspa as lio
-        from gstbad_tpu.elements.audio.ladspa import \
+        from gstbad.io import ladspa as lio
+        from gstbad.elements.audio.ladspa import \
             register_ladspa_elements
         register_ladspa_elements(lio.build_test_plugins())
     except Exception as e:  # noqa: BLE001
         print(f"note: ladspa fixtures unavailable ({e})")
     try:
-        from gstbad_tpu.elements.video.frei0r import \
+        from gstbad.elements.video.frei0r import \
             register_frei0r_elements
         register_frei0r_elements(include_fixtures=True)
     except Exception as e:  # noqa: BLE001
         print(f"note: frei0r fixtures unavailable ({e})")
     try:
-        from gstbad_tpu.io import lv2 as l2io
-        from gstbad_tpu.elements.audio.lv2 import register_lv2_elements
+        from gstbad.io import lv2 as l2io
+        from gstbad.elements.audio.lv2 import register_lv2_elements
         register_lv2_elements(l2io.build_test_plugins())
     except Exception as e:  # noqa: BLE001
         print(f"note: lv2 fixtures unavailable ({e})")
@@ -69,7 +70,11 @@ def main():
                     notes.append("controllable")
                 if p.static:
                     notes.append("static (re-prepares)")
-                lines.append(f"| {p.name} | {p.type.__name__} | {p.default} "
+                # defaults that are paths into the checkout print
+                # relative to it, so the page does not depend on where
+                # the repo lives
+                default = str(p.default).replace(REPO + os.sep, "<repo>/")
+                lines.append(f"| {p.name} | {p.type.__name__} | {default} "
                              f"| {rng} | {', '.join(notes)} |")
             lines.append("")
     with open("docs/elements.md", "w") as f:

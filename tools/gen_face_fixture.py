@@ -1,4 +1,4 @@
-"""Generate the face-detection test fixture (gstbad_tpu/data/face_fixture.npz).
+"""Generate the face-detection test fixture (gstbad/data/face_fixture.npz).
 
 This environment has the OpenCV Haar face models
 (/usr/share/opencv4/haarcascades) but no face photos and no
@@ -34,7 +34,7 @@ FACTOR = 2.0
 def soft_margins(frame, arrs, k=8.0):
     """Per-stage (margin) map [S, ny, nx] of the sigmoid-relaxed cascade
     at pyramid FACTOR over `frame` — differentiable w.r.t. frame."""
-    from gstbad_tpu.ops import haar
+    from gstbad.ops import haar
 
     ww, wh = arrs.window
     sh2, sw2 = int(FRAME / FACTOR), int(FRAME / FACTOR)
@@ -112,8 +112,8 @@ def soft_margins(frame, arrs, k=8.0):
 
 
 def main():
-    from gstbad_tpu.io.haarcascade import parse_cascade
-    from gstbad_tpu.ops import haar
+    from gstbad.io.haarcascade import parse_cascade
+    from gstbad.ops import haar
 
     arrs = haar.compile_arrays(parse_cascade(CASCADE))
     fx, fy = FACE_XY
@@ -163,7 +163,7 @@ def main():
     print("windows with count>=3:", ok)
     assert ok > 0, "fixture failed hard verification"
     here = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "..", "gstbad_tpu", "data")
+                        "..", "gstbad", "data")
     np.savez(os.path.join(here, "face_fixture.npz"),
              patch=np.asarray(patch).astype(np.float32),
              frame=frame.astype(np.uint8), face_xy=np.asarray(FACE_XY),

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Extract the Siren7 (ITU-T G.722.1) codebook DATA tables from the
-reference header into gstbad_tpu/data/siren_tables.py.
+reference header into gstbad/data/siren_tables.py.
 
 These are trained/standardized codebook constants (huffman code and
 bitcount tables, quantizer centroids, noise fill levels, differential
 decoder trees) defined by the G.722.1 codec — pure DATA, extracted
 verbatim with provenance (like data/fist.xml and the coloreffects GIMP
 curves; see data/README.md).  The codec ENGINE that consumes them
-(gstbad_tpu/io/siren.py) is this repo's own transcription.
+(gstbad/io/siren.py) is this repo's own transcription.
 
 Source: /root/reference/gst/siren/huffman_consts.h
 """
@@ -19,7 +19,7 @@ import re
 
 SRC = "/root/reference/gst/siren/huffman_consts.h"
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                   "gstbad_tpu", "data", "siren_tables.py")
+                   "gstbad", "data", "siren_tables.py")
 
 WANT = [
     ("differential_region_power_bits", "int"),
@@ -122,7 +122,7 @@ def main():
                 'tools/gen_siren_tables.py from\n'
                 'gst/siren/huffman_consts.h in the reference tree.  The '
                 'codec engine that\nconsumes these lives in '
-                'gstbad_tpu/io/siren.py.\n"""\n\n')
+                'gstbad/io/siren.py.\n"""\n\n')
         f.write("# fmt: off\n")
         for name, _ in WANT:
             f.write(f"{name} = {chunks[name]!r}\n\n")

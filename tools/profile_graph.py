@@ -13,7 +13,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax
 
-import gstbad_tpu as gt
+import gstbad as gt
 
 CHAIN = ["coloreffects preset=sepia", "solarize", "chromium", "dodge",
          "burn", "exclusion", "dilate", "chromahold",
@@ -30,7 +30,7 @@ def timep(desc, window=8, reps=6):
     states, leaf, _ = step(params, states, None)
     x = leaf[-1].data
     x = x["y"] if isinstance(x, dict) else x
-    _ = np.asarray(x[0, 0, :2])  # force completion through the relay
+    _ = np.asarray(x[0, 0, :2])  # force completion (fetch to host)
     t0 = time.perf_counter()
     for _i in range(reps):
         states, leaf, _ = step(params, states, None)

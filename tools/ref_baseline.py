@@ -88,17 +88,17 @@ def load():
 
 
 def sepia_table() -> np.ndarray:
-    from gstbad_tpu.elements.video._coloreffects_tables import TABLES
+    from gstbad.elements.video._coloreffects_tables import TABLES
     return np.ascontiguousarray(TABLES["sepia"].astype(np.uint8))
 
 
 def crosscheck(lib) -> dict:
     """golden/ vs compiled C.  burn + fieldanalysis SAD run REAL reference
     code (ORC backup C); the rest checks this harness's transcriptions."""
-    from gstbad_tpu.golden import gaudieffects as g
-    from gstbad_tpu.golden import fieldanalysis as g_fa
-    from gstbad_tpu.golden import videofilters as g_vf
-    from gstbad_tpu.golden import coloreffects as g_ce
+    from gstbad.golden import gaudieffects as g
+    from gstbad.golden import fieldanalysis as g_fa
+    from gstbad.golden import videofilters as g_vf
+    from gstbad.golden import coloreffects as g_ce
 
     rng = np.random.default_rng(42)
     h, w = 64, 128
@@ -157,7 +157,7 @@ def crosscheck(lib) -> dict:
     results["gaussianblur_ok"] = bool(diff <= 1)
 
     # 5. freeverb C vs golden serial float32 (-O3 FMA contraction only)
-    from gstbad_tpu.golden import audio as g_audio
+    from gstbad.golden import audio as g_audio
     x = ((rng.random((4096, 2)) - 0.5) * 0.8).astype(np.float32)
     y = np.empty_like(x)
     lib.rb_freeverb_seconds(np.ascontiguousarray(x.ravel()), y.ravel(),
@@ -169,7 +169,7 @@ def crosscheck(lib) -> dict:
     results["freeverb_ok"] = bool(np.abs(y - want).max() <= 1e-5)
 
     # 6. bayer2rgb: REAL reference ORC merge kernels vs golden
-    from gstbad_tpu.golden import bayer as g_bayer
+    from gstbad.golden import bayer as g_bayer
     raw = rng.integers(0, 256, (64, 128), dtype=np.uint8)
     bdst = np.empty(64 * 128 * 4, np.uint8)
     btmp = np.empty(8 * 128, np.uint8)
@@ -180,7 +180,7 @@ def crosscheck(lib) -> dict:
         (bdst.reshape(64, 128, 4) == want_b).all())
 
     # 7. remap transcription vs golden fisheye (trunc-index copy)
-    from gstbad_tpu.golden import geometric as g_geo
+    from gstbad.golden import geometric as g_geo
     mp = g_geo.fisheye_map(w, h)
     rdst = np.zeros(n * 4, np.uint8)
     lib.rb_remap_clamp(rdst, src, np.ascontiguousarray(
@@ -190,7 +190,7 @@ def crosscheck(lib) -> dict:
         (rdst.reshape(h, w, 4) == want_r).all())
 
     # 8. ivtc comb score vs golden
-    from gstbad_tpu.golden import ivtc as g_ivtc
+    from gstbad.golden import ivtc as g_ivtc
     t0f = rng.integers(0, 256, (64, 128), dtype=np.uint8)
     b0f = rng.integers(0, 256, (64, 128), dtype=np.uint8)
     got_s = lib.rb_ivtc_comb_score(np.ascontiguousarray(t0f).ravel(),
@@ -292,7 +292,7 @@ def measure_config3_audio(lib, rate=48000, block=4800, min_seconds=2.0):
 def measure_config4_warp(lib, width=3840, height=2160):
     """Config 4: bayer2rgb + fisheye + twirl at 4K (the per-frame remap
     loops over the precalc maps + the reference ORC demosaic)."""
-    from gstbad_tpu.golden import geometric as g_geo
+    from gstbad.golden import geometric as g_geo
     rng = np.random.default_rng(0)
     n = width * height
     raw = rng.integers(0, 256, n, dtype=np.uint8)
